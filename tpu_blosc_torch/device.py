@@ -1,0 +1,245 @@
+"""Device tensors in, Blosc frames out, and back.
+
+Counterpart: ``tpu_blosc/device.py``, the transfer strategy of
+``compress_array`` (:692-876) and the transfer and device strategies of
+``decompress_array`` (:1455-1535, :1592-1710).
+
+Compress: every full block of the tensor's bytes is byte-shuffled on the
+tensor's device (filters.batched.shuffle_blocks), the filtered stream
+crosses to the host in one copy, the ragged tail is shuffled there, and
+the native codec writes a FLAG_SPLIT frame.  The frames are byte-identical
+to ``api.compress_with_options(x.cpu().numpy().tobytes(), opts)``:
+filtering on the device is an execution choice, never a format choice.
+
+Decompress ("device"): the host decodes the codec stage only, one copy
+takes the still-filtered stream to the device, and the device unshuffles
+it, passing blocks that were stored raw through untouched.
+
+The rle, match and records strategies and bitshuffle on the device are
+not ported yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from . import filters
+from .api import (
+    AUTO_BLOCK_THRESHOLD,
+    compress_with_options,
+    decompress_into,
+    get_decompressed_size,
+)
+from .chunk import (
+    assemble_split_frame,
+    choose_block_size,
+    native_pipeline_codec,
+    parse_block_table,
+    payload_offsets,
+)
+from .errors import InvalidCodecError, InvalidDataError
+from .format import HEADER_SIZE, Shuffle, parse_header
+from .native import backend as _nb
+from .options import Options
+
+# bit 3 of the native shuffle mode: the stream arrives already filtered
+# (tpu_blosc/device.py:818-821); zlib's byte identity depends on it
+_PREFILTERED = 8
+
+_STRATEGY_TODO = (
+    "compress_array/decompress_array strategy {!r} is not ported yet; "
+    "see ROADMAP.md, Queue 1, 'Device codec strategies'"
+)
+_BITSHUFFLE_TODO = (
+    "bitshuffle on the device is not ported yet; see ROADMAP.md, Queue 1, "
+    "'The rest of the filter matrix'"
+)
+
+
+def tensor_bytes(x: torch.Tensor) -> torch.Tensor:
+    """The tensor's bytes in logical C order, as a flat uint8 tensor on its
+    device (the bytes of ``np.asarray(x).tobytes()``)."""
+    flat = x.detach().resolve_conj().resolve_neg().contiguous().reshape(-1)
+    if flat.dtype == torch.uint8:
+        return flat
+    if flat.is_complex():
+        flat = torch.view_as_real(flat).reshape(-1)
+    return flat.view(torch.uint8)
+
+
+def compress_array(x: torch.Tensor, opts: Options | None = None,
+                   strategy: str = "transfer") -> bytes:
+    """Compress a tensor with the filter stage on its device.
+
+    ``opts.type_size`` left at the default (4) takes the dtype's element
+    size instead, as in tpu_blosc/device.py:740-747.  Single-block,
+    unfiltered and sub-block inputs take the host route.
+    """
+    if strategy != "transfer":
+        raise NotImplementedError(_STRATEGY_TODO.format(strategy))
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"compress_array takes a torch.Tensor, got {type(x)!r}")
+    if opts is None:
+        opts = Options()
+    itemsize = x.element_size()
+    if opts.type_size == Options().type_size and itemsize != opts.type_size:
+        opts = replace(opts, type_size=itemsize)
+    opts = opts.clamped()
+
+    flat = tensor_bytes(x)
+    n = flat.numel()
+    if n == 0:
+        raise InvalidDataError("blosc: invalid compressed data: empty input")
+    block_size = choose_block_size(n, opts.type_size, opts.block_size)
+    nb_full = n // block_size
+    do_filter = opts.shuffle != Shuffle.NOSHUFFLE and opts.type_size > 1
+    use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
+    if not use_chunked or not do_filter or nb_full == 0:
+        return compress_with_options(flat.cpu().numpy(), opts)
+    if opts.shuffle == Shuffle.BITSHUFFLE:
+        raise NotImplementedError(_BITSHUFFLE_TODO)
+    filtered = _device_filter_fetch(flat, opts.type_size, nb_full, block_size)
+    return _compress_array_stage2(filtered, opts, block_size)
+
+
+def _device_filter_fetch(flat: torch.Tensor, type_size: int, nb_full: int,
+                         block_size: int) -> np.ndarray:
+    """Shuffle the full blocks on the device, copy the stream to the host
+    once, shuffle the ragged tail there (≙ tpu_blosc/device.py:773-792)."""
+    body = nb_full * block_size
+    staged = torch.empty_like(flat)
+    filters.shuffle_blocks(
+        flat[:body].view(nb_full, block_size), type_size,
+        out=staged[:body].view(nb_full, block_size),
+    )
+    staged[body:] = flat[body:]
+    host = staged.cpu().numpy()  # the one device-to-host copy
+    if host.size - body >= type_size:
+        host[body:] = filters.shuffle_bytes(host[body:], type_size)
+    return host
+
+
+def _compress_array_stage2(filtered: np.ndarray, opts: Options,
+                           block_size: int) -> bytes:
+    """Run the native codec over the filtered stream and write the frame
+    (≙ tpu_blosc/device.py:795-876).
+
+    Blocks that take the memcpy fallback must carry their raw bytes, so
+    their filtered bytes are unshuffled back on the host.
+    """
+    native = native_pipeline_codec(opts.codec, opts.level)
+    if native is None:
+        raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
+    native_codec, depth = native
+    slots, slot, sizes, memcpy_flags = _nb.compress_slots(
+        filtered, block_size, opts.type_size, _PREFILTERED, native_codec,
+        depth, num_threads=opts.num_threads,
+    )
+    for i in np.flatnonzero(memcpy_flags):
+        payload = slots[i * slot : i * slot + sizes[i]]
+        payload[:] = filters.unshuffle_bytes(payload, opts.type_size)
+    return assemble_split_frame(
+        opts, filtered.size, block_size, slots, slot, sizes, memcpy_flags
+    )
+
+
+def _target_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "decompress_array: no CUDA device is available; pass "
+            "device='cpu' to decode onto the host"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
+                     strategy: str = "auto") -> torch.Tensor:
+    """Decompress a frame into a tensor of ``dtype`` on ``device``.
+
+    ``device=None`` means the current CUDA device.  ``shape`` defaults to
+    1-D.  Strategies: "auto" and "transfer" decode on the host and copy
+    the result once; "device" decodes the codec stage on the host and
+    unshuffles on the device, for byte-shuffled multi-block frames at any
+    type size (other frames take the host decode, as in the JAX package).
+    """
+    if strategy not in ("auto", "transfer", "device"):
+        raise NotImplementedError(_STRATEGY_TODO.format(strategy))
+    target = _target_device(device)
+    n = get_decompressed_size(data)
+    if n % dtype.itemsize:
+        raise InvalidDataError(
+            f"blosc: {n} bytes is not a whole number of {dtype} elements"
+        )
+    out = None
+    if strategy == "device":
+        out = _decompress_array_devfilter(data, n, target)
+    if out is None:
+        host = torch.empty(n, dtype=torch.uint8)
+        decompress_into(data, host.numpy())
+        out = host.to(target)
+    out = out.view(dtype)
+    return out.reshape(shape) if shape is not None else out
+
+
+def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int):
+    """Host decode of a FLAG_SPLIT frame's blocks to the still-filtered
+    stream (shuffle mode 0), as a CPU uint8 tensor, with the block table.
+    None when the layout does not add up: the host path then raises with
+    full context (≙ tpu_blosc/device.py:1592-1627).  Blocks stored raw
+    come back raw."""
+    if header.nbytes_comp > len(raw) or header.nbytes_comp < HEADER_SIZE:
+        return None
+    entries, offset = parse_block_table(raw, header)
+    if len(entries) != -(-n // header.block_size):
+        return None
+    offsets, psizes, is_memcpy = payload_offsets(entries, offset)
+    if int(offsets[-1] + psizes[-1]) > min(len(raw), header.nbytes_comp):
+        return None
+    buf = torch.empty(n, dtype=torch.uint8)
+    _nb.decompress_blocks(
+        np.frombuffer(raw, np.uint8), offsets, psizes, is_memcpy,
+        header.block_size, n, header.type_size, 0, native_codec,
+        out_addr=buf.data_ptr(),
+    )
+    return buf, entries
+
+
+def _decompress_array_devfilter(data, n: int, device: torch.device):
+    """The "device" strategy's body; None when the frame does not qualify
+    (≙ tpu_blosc/device.py:1630-1710)."""
+    raw = bytes(data)
+    if len(raw) < HEADER_SIZE or raw[:4] == b"TPB2":
+        return None
+    header = parse_header(raw)
+    if not header.is_split or header.has_bitshuffle or not header.has_shuffle:
+        return None
+    ts, bs = header.type_size, header.block_size
+    if ts < 2 or bs == 0 or bs % ts:
+        return None
+    native = native_pipeline_codec(header.codec, 1)
+    nb_full = n // bs
+    if native is None or nb_full == 0:
+        return None
+    decoded = _decode_filtered_blocks(raw, header, n, native[0])
+    if decoded is None:
+        return None
+    host, entries = decoded
+    body = nb_full * bs
+    tail_raw = n > body and entries[nb_full][1]
+    if n - body >= ts and not tail_raw:
+        host[body:] = torch.from_numpy(filters.unshuffle_bytes(host[body:].numpy(), ts))
+    stream = host.to(device)  # the one host-to-device copy
+    keep = [m for _, m in entries[:nb_full]]
+    keep_raw = torch.tensor(keep, dtype=torch.bool).to(device) if any(keep) else None
+    out = torch.empty_like(stream)
+    filters.unshuffle_blocks(
+        stream[:body].view(nb_full, bs), ts, keep_raw=keep_raw,
+        out=out[:body].view(nb_full, bs),
+    )
+    out[body:] = stream[body:]
+    return out

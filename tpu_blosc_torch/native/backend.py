@@ -1,0 +1,273 @@
+"""ctypes binding of the native C++ host codec.
+
+Counterpart: ``tpu_blosc/native/backend.py``, the subset the port's slice
+uses.  The library is compiled from the JAX package's own source,
+``tpu_blosc/native/tpublosc.cpp``, read in place and never copied, so both
+packages run one codec and write the same bytes.  It is built with g++ at
+first use into ``tpu_blosc_torch/_build/`` with the flag ladder of
+``tpu_blosc/native/backend.py:65-81``.  ``include/zstd.h`` declares the
+zstd functions the source calls, and the library links the runtime
+``libzstd.so.1``, so a host without zstd's development files builds it too.
+
+Unlike the JAX package there is no pure-Python fallback: a failed build
+raises.  Every pointer crosses as ``ctypes.c_void_p`` (a plain int would
+be cut to 32 bits).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import numpy as np
+
+from .. import buildlib
+from ..errors import DecompressionFailedError, SizeMismatchError
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(
+    os.path.dirname(os.path.dirname(_HERE)), "tpu_blosc", "native", "tpublosc.cpp"
+)
+_INCLUDE = os.path.join(_HERE, "include")
+LIB_PATH = os.path.join(buildlib.BUILD_DIR, "libtpublosc.so")
+
+_BASE = ["-O3", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
+_LADDER = (["-march=native", "-fopenmp"], ["-fopenmp"], ["-march=native"], [])
+
+# codec IDs of the native pipeline (not the frame's codec byte; chunk.py maps)
+NATIVE_BLOSCLZ = 0
+NATIVE_LZ4 = 1
+NATIVE_LZ4HC = 2
+NATIVE_SNAPPY = 3
+NATIVE_ZLIB = 4
+NATIVE_ZSTD = 5
+
+_i64 = ctypes.c_int64
+_int = ctypes.c_int
+_p = ctypes.c_void_p
+
+_SIGNATURES = {
+    "tpb_compress_bound": (_i64, [_i64, _int]),
+    "tpb_compress_blocks": (_i64, [
+        _p, _i64, _i64,          # src, n, block_size
+        _int, _int, _int, _int,  # ts, shuffle_mode, codec, depth
+        _p, _i64,                # out, slot_stride
+        _p, _p,                  # out_sizes, out_memcpy
+        _int,                    # num_threads (0 = all cores)
+    ]),
+    "tpb_gather": (_i64, [_p, _p, _i64, _i64, _p]),
+    "tpb_compress_frame": (_i64, [
+        _p, _i64,                # src, n
+        _int, _int,              # ts, shuffle_mode
+        _int, _int, _int,        # header_codec, codec, depth
+        _p,                      # dst (16 + bound)
+    ]),
+    "tpb_decompress_blocks": (_i64, [
+        _p, _p, _p, _p,          # payloads, offsets, psizes, is_memcpy
+        _i64, _i64, _i64,        # nb, block_size, total_n
+        _int, _int, _int,        # ts, shuffle_mode, codec
+        _p,                      # out
+        _int,                    # num_threads
+    ]),
+    "tpb_decompress_block_into": (_i64, [
+        _p, _i64, _i64,          # frame, payload_off, psize
+        _p, _i64,                # out, n
+        _int, _int, _int,        # ts, shuffle_mode, codec
+    ]),
+    "tpb_shuffle": (None, [_p, _p, _i64, _int]),
+    "tpb_unshuffle": (None, [_p, _p, _i64, _int]),
+    "tpb_bitunshuffle": (None, [_p, _p, _i64, _int]),
+}
+
+_lib = None
+_load_lock = threading.Lock()
+# seconds the first load of this process spent compiling (0.0: up to date)
+build_seconds: float | None = None
+
+
+def _commands() -> list[list[str]]:
+    return [
+        ["g++", *_BASE, *flags, "-I", _INCLUDE, SOURCE, "-o", buildlib.OUT,
+         "-lz", "-l:libzstd.so.1"]
+        for flags in _LADDER
+    ]
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library, built first if the source changed."""
+    global _lib, build_seconds
+    if _lib is None:
+        with _load_lock:
+            if _lib is None:
+                build_seconds = buildlib.ensure_built(
+                    LIB_PATH, [SOURCE, os.path.join(_INCLUDE, "zstd.h")],
+                    _commands(),
+                )
+                handle = ctypes.CDLL(LIB_PATH)
+                for name, (restype, argtypes) in _SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.restype = restype
+                    fn.argtypes = argtypes
+                _lib = handle
+    return _lib
+
+
+# Uninitialised bytes via the CPython C API: the codec writes straight into
+# the result object's buffer, which is exclusively owned until returned.
+_pybytes_new = ctypes.pythonapi.PyBytes_FromStringAndSize
+_pybytes_new.restype = ctypes.py_object
+_pybytes_new.argtypes = [ctypes.c_char_p, ctypes.c_ssize_t]
+_pybytes_addr = ctypes.pythonapi.PyBytes_AsString
+_pybytes_addr.restype = _p
+_pybytes_addr.argtypes = [ctypes.py_object]
+
+
+def alloc_bytes(n: int) -> tuple[bytes, int]:
+    """Return (uninitialised bytes object of length n, writable address)."""
+    b = _pybytes_new(None, n)
+    return b, _pybytes_addr(b)
+
+
+def as_u8(data) -> np.ndarray:
+    """Flat contiguous uint8 view of a bytes-like object or ndarray."""
+    if isinstance(data, np.ndarray):
+        a = data.reshape(-1).view(np.uint8)
+        return a if a.flags.c_contiguous else np.ascontiguousarray(a)
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+def _addr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def _shuffle_call(name: str, data, type_size: int) -> np.ndarray:
+    a = as_u8(data)
+    out = np.empty(a.size, dtype=np.uint8)
+    getattr(lib(), name)(_addr(a), _addr(out), a.size, type_size)
+    return out
+
+
+def shuffle(data, type_size: int) -> np.ndarray:
+    """Whole-buffer byte shuffle; bytes past the last element stay put."""
+    return _shuffle_call("tpb_shuffle", data, type_size)
+
+
+def unshuffle(data, type_size: int) -> np.ndarray:
+    return _shuffle_call("tpb_unshuffle", data, type_size)
+
+
+def bitunshuffle(data, type_size: int) -> np.ndarray:
+    return _shuffle_call("tpb_bitunshuffle", data, type_size)
+
+
+def compress_slots(data, block_size: int, type_size: int, shuffle_mode: int,
+                   native_codec: int, depth: int, num_threads: int = 0):
+    """Filter and compress every block in one parallel native call
+    (≙ tpu_blosc/native/backend.py:471-505).
+
+    Returns (slots, slot_stride, sizes, memcpy_flags): block i's payload
+    is ``slots[i*slot_stride : i*slot_stride + sizes[i]]``; a memcpy block
+    holds the block's input bytes.  Bit 3 of ``shuffle_mode`` says the
+    data arrives already filtered (the device route), which keeps zlib's
+    output byte-identical to the host route's.
+    """
+    a = as_u8(data)
+    nb = -(-a.size // block_size)
+    slot = int(lib().tpb_compress_bound(block_size, native_codec))
+    out = np.empty(nb * slot, dtype=np.uint8)
+    sizes = np.empty(nb, dtype=np.int64)
+    memcpy_flags = np.empty(nb, dtype=np.uint8)
+    rc = lib().tpb_compress_blocks(
+        _addr(a), a.size, block_size,
+        type_size, shuffle_mode, native_codec, depth,
+        _addr(out), slot, _addr(sizes), _addr(memcpy_flags),
+        num_threads,
+    )
+    if rc != 0:
+        raise RuntimeError(f"native compress_blocks failed ({rc})")
+    return out, slot, sizes, memcpy_flags
+
+
+def gather_frame(prefix: bytes, slots: np.ndarray, slot: int,
+                 sizes: np.ndarray) -> bytes:
+    """``prefix`` (header and block table) followed by every payload, in
+    one allocation and one native copy of the payloads."""
+    frame, addr = alloc_bytes(len(prefix) + int(sizes.sum()))
+    ctypes.memmove(addr, prefix, len(prefix))
+    rc = lib().tpb_gather(_addr(slots), _addr(sizes), sizes.size, slot,
+                          addr + len(prefix))
+    if rc != 0:
+        raise MemoryError("native frame gather failed: offsets allocation")
+    return frame
+
+
+def decompress_blocks(payloads: np.ndarray, offsets: np.ndarray,
+                      psizes: np.ndarray, is_memcpy: np.ndarray,
+                      block_size: int, total_n: int, type_size: int,
+                      shuffle_mode: int, native_codec: int,
+                      out_addr: int | None = None, num_threads: int = 0):
+    """Decompress and unfilter every block in one parallel native call.
+
+    Returns the decoded bytes, or with ``out_addr`` writes there and
+    returns the byte count (≙ tpu_blosc/native/backend.py:550-588).
+    """
+    if out_addr is None:
+        out, addr = alloc_bytes(total_n)
+    else:
+        out, addr = None, out_addr
+    got = lib().tpb_decompress_blocks(
+        _addr(payloads), _addr(offsets), _addr(psizes), _addr(is_memcpy),
+        offsets.size, block_size, total_n,
+        type_size, shuffle_mode, native_codec,
+        addr, num_threads,
+    )
+    if got != total_n:
+        raise DecompressionFailedError(
+            f"native decompress_blocks failed (code {got})"
+        )
+    return out if out_addr is None else total_n
+
+
+def _universal_bound(n: int) -> int:
+    # a superset of every native codec's bound (lz4 n/255, snappy n/6,
+    # zlib n/4096, zstd n/128, all plus small constants)
+    return 16 + n + (n >> 2) + 1024
+
+
+def compress_frame(data, type_size: int, shuffle_mode: int, header_codec: int,
+                   native_codec: int, depth: int) -> bytes:
+    """One C call making a whole single-block frame, header included
+    (≙ tpu_blosc/native/backend.py:612-644)."""
+    a = as_u8(data)
+    dst = np.empty(_universal_bound(a.size), dtype=np.uint8)
+    total = lib().tpb_compress_frame(
+        _addr(a), a.size, type_size, shuffle_mode, header_codec,
+        native_codec, depth, _addr(dst),
+    )
+    if total < 0:
+        raise RuntimeError(f"native compress_frame failed ({total})")
+    return dst[:total].tobytes()
+
+
+def decompress_frame(data: bytes, payload_off: int, payload_size: int,
+                     nbytes_orig: int, type_size: int, shuffle_mode: int,
+                     native_codec: int) -> bytes:
+    """One C call decoding and unfiltering a single-block frame body
+    (≙ tpu_blosc/native/backend.py:700-742)."""
+    a = as_u8(data)
+    out, addr = alloc_bytes(nbytes_orig)
+    got = lib().tpb_decompress_block_into(
+        _addr(a), payload_off, payload_size, addr, nbytes_orig,
+        type_size, shuffle_mode, native_codec,
+    )
+    if got == nbytes_orig:
+        return out
+    if got < 0:
+        raise DecompressionFailedError(
+            f"blosc: decompression failed: malformed payload (code {got})"
+        )
+    raise SizeMismatchError(
+        f"blosc: decompressed size mismatch: got {got}, "
+        f"expected {nbytes_orig}"
+    )
