@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA GPU and check it.
+"""Drive the PyTorch port's main paths once on one CUDA GPU and check them.
 
 Run from the root of the repository, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the native host codec (g++) and the CUDA shuffle kernels (nvcc)
-from the sources in the checkout into tpu_blosc_torch/_build/, then:
+It builds the native host codec (g++) and the CUDA kernels (nvcc, one
+process per source in csrc/, all at once, beside the g++ build) from the
+sources in the checkout into tpu_blosc_torch/_build/, then:
 
 1. prints the card, its power limit, torch, CUDA and nvcc versions and
    the build times;
-2. holds each kernel against its plain PyTorch version on the card
-   (random bytes, type sizes 2, 3, 4, 8 and 16, three shapes each) and
-   times both at (64, 1 MiB) for type sizes 4 and 8;
+2. holds each kernel against its plain PyTorch version on the card:
+   - the shuffle pair: random bytes, type sizes 2, 3, 4, 8 and 16, three
+     shapes each, timed at (64, 1 MiB) for type sizes 4 and 8;
+   - the match kernel: seg 256, 4096, 16384 and 262144, random and
+     periodic rows, offsets 1, 3, 48, 1024 and one that leaves the whole
+     row literal (and, in step 5, path C's own (1024, 262144) segments at
+     their offsets, where it is timed);
+   - the probe kernel: 1, 2 and 4 tiles and a 64 MiB (32768, 512) tensor,
+     timed on the latter;
 3. main path A: a 64 MiB float32 ramp, LZ4 level 5, byte shuffle;
 4. main path B: 64 MB of float64 signal, ZSTD level 5, byte shuffle,
    with one 1 MiB block of random bytes (memcpy fallback) and a ragged
    tail;
-5. prints the kernels' JSON line and, last, the ok line.
+5. main path C: 256 MiB of tiled float32 with 1% noise (bench.py's match
+   data), LZ4 level 5, 1 MiB blocks, compress_array(strategy="match");
+6. suggest_codec and suggest_options on A's, B's and random bytes;
+7. prints the kernels' JSON line and, last, the ok line.
 
-Each main path runs compress_array on the CUDA tensor and
+Paths A and B run compress_array on the CUDA tensor and
 decompress_array(strategy="device"), and must give the frame of the host
 path (compress_with_options on the tensor's bytes) and the tensor back
-exactly, with both kernels launched.  Any failure raises, so the script
+exactly.  Path C's frame must differ from the transfer frame (the
+emitter engaged), decode to the tensor on the host and through
+decompress_array(strategy="device"), and equal, on a 16 MiB slice, the
+frame the CPU route (the kernels' plain versions) writes.  Every kernel
+must be launched by the path it serves: the launch counts are reset just
+before each path and read just after.  Any failure raises, so the script
 exits non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
 """
@@ -84,6 +99,8 @@ def host_s(fn, reps: int = 5) -> float:
 
 
 def phase_environment() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from tpu_blosc_torch.filters import kernels
     from tpu_blosc_torch.native import backend
 
@@ -94,13 +111,13 @@ def phase_environment() -> None:
                           text=True, check=True, timeout=60)
     print("nvcc:", nvcc.stdout.strip().splitlines()[-1])
     t0 = time.perf_counter()
-    backend.lib()
-    t1 = time.perf_counter()
-    kernels.lib()
-    t2 = time.perf_counter()
-    print(f"build: host codec {backend.build_seconds:.1f} s compiling "
-          f"({t1 - t0:.1f} s to load), shuffle kernels "
-          f"{kernels.build_seconds:.1f} s compiling ({t2 - t1:.1f} s to load)")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(backend.lib), pool.submit(kernels.lib)]
+        for b in builds:
+            b.result()
+    print(f"build, both at once: {time.perf_counter() - t0:.1f} s; host codec "
+          f"{backend.build_seconds:.1f} s compiling, CUDA kernels "
+          f"({len(kernels.SOURCES)} sources) {kernels.build_seconds:.1f} s compiling")
 
 
 def phase_kernels(rng) -> dict:
@@ -253,6 +270,232 @@ def check_and_time_case(tbt, name, x, opts, frame, y) -> int:
     return n_raw
 
 
+def periodic_rows(rng, nrows: int, seg: int, period: int) -> np.ndarray:
+    """Rows tiled with a random pattern of ``period`` bytes, with 1% of
+    the bytes changed."""
+    pattern = rng.integers(0, 256, (nrows, period), dtype=np.uint8)
+    rows = np.tile(pattern, (1, seg // period + 1))[:, :seg].copy()
+    hit = rng.random((nrows, seg)) < 0.01
+    rows[hit] ^= 0x5A
+    return rows
+
+
+def phase_match_kernel(rng) -> dict:
+    """The match kernel against its plain version at four segment
+    lengths; returns the largest error."""
+    from tpu_blosc_torch.filters import kernels, match as fm
+
+    worst = 0
+
+    def compare(segs, row_d, what):
+        nonlocal worst
+        got = kernels.match_nibble(segs, row_d, fm.ROW_TAIL_LITERALS, fm.MATCH_T)
+        want = fm.match_nibble_plain(segs, row_d)
+        torch.cuda.synchronize()
+        worst = max(worst, int((got.int() - want.int()).abs().max()))
+        check(torch.equal(got, want), f"match kernel vs plain, {what}")
+        return got
+
+    for seg in (256, 4096, 16384, 262144):
+        nrows = 64 if seg < 262144 else 16
+        offsets = [d for d in (1, 3, 48, 1024) if d < seg] + [seg - 20]
+        half = nrows // 2
+        rows = np.concatenate([
+            rng.integers(0, 256, (half, seg), dtype=np.uint8),
+            np.concatenate([periodic_rows(rng, 1, seg, offsets[i % len(offsets)])
+                            for i in range(half)]),
+        ])
+        segs = torch.from_numpy(rows).to(DEVICE)
+        lit = {}
+        for d in offsets:
+            row_d = torch.full((nrows,), d, dtype=torch.int32, device=DEVICE)
+            got = compare(segs, row_d, f"seg={seg} d={d}")
+            lit[d] = int(sum(int(((got >> t) & 1).sum()) for t in range(4)))
+        mixed = torch.tensor([offsets[i % len(offsets)] for i in range(nrows)],
+                             dtype=torch.int32, device=DEVICE)
+        compare(segs, mixed, f"seg={seg} mixed offsets")
+        check(lit[seg - 20] == nrows * seg, f"seg={seg}: d = seg - 20 leaves every byte literal")
+        print(f"match kernel: seg={seg}, {nrows} rows (half random, half periodic "
+              f"with 1% breaks), equal to the plain version at d={offsets} and mixed; "
+              f"literal bytes per d: {lit}")
+
+    return {"max_abs_err": worst}
+
+
+def phase_probe_kernel(rng) -> dict:
+    """The probe kernel against its plain version; returns the largest
+    error and the times at (32768, 512)."""
+    from tpu_blosc_torch.filters import kernels, probe as tp
+
+    worst = 0
+    inputs = {
+        "1 tile, 300 KB structured": np.tile(np.arange(7, dtype=np.uint8), 300_000 // 7),
+        "2 tiles, 1.5 MB random": rng.integers(0, 256, 1_500_000, dtype=np.uint8),
+        "4 tiles, 3.9 MB small alphabet": rng.integers(0, 3, 3_900_000, dtype=np.uint8),
+    }
+    for name, data in inputs.items():
+        words = tp.probe_ready(data, device=DEVICE)
+        got = kernels.probe_tiles(words)
+        want = tp.probe_tiles_plain(words)
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max()))
+        check(torch.equal(got, want), f"probe kernel vs plain, {name}")
+        print(f"probe kernel: {name}: per-tile (runs, byte sum) {got.tolist()}, "
+              f"equal to the plain version")
+    words = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (32768, 512), dtype=np.int32)).to(DEVICE)
+    got = kernels.probe_tiles(words)
+    want = tp.probe_tiles_plain(words)
+    torch.cuda.synchronize()
+    worst = max(worst, int((got - want).abs().max()))
+    check(torch.equal(got, want), "probe kernel vs plain, (32768, 512)")
+    t = {
+        "ms": cuda_ms(lambda: kernels.probe_tiles(words)),
+        "plain_ms": cuda_ms(lambda: tp.probe_tiles_plain(words), iters=10),
+    }
+    print(f"probe kernel: (32768, 512) random, 64 tiles: runs {got[:, 0].sum().item()}, "
+          f"byte sum {got[:, 1].sum().item()}, equal to the plain version; kernel "
+          f"{t['ms']:.4f} ms = {words.numel() * 4 / t['ms'] / 1e6:.1f} GB/s, plain "
+          f"{t['plain_ms']:.4f} ms = {words.numel() * 4 / t['plain_ms'] / 1e6:.1f} GB/s")
+    return {"max_abs_err": worst, **t}
+
+
+def match_data() -> np.ndarray:
+    """256 MiB of float32: a tiled 256-element random pattern plus 1%
+    noise (bench.py:223-233, numpy seed 5)."""
+    rng = np.random.default_rng(5)
+    n_el = 64 * MIB
+    data = np.tile(rng.random(256).astype(np.float32), n_el // 256)
+    hit = rng.choice(data.size, data.size // 100, replace=False)
+    data[hit] += rng.random(hit.size).astype(np.float32) * 0.01
+    return data
+
+
+def run_path_c(tbt, x, opts):
+    frame = tbt.compress_array(x, opts, strategy="match")
+    y = tbt.decompress_array(frame, x.dtype, device=DEVICE, strategy="device")
+    torch.cuda.synchronize()
+    return frame, y
+
+
+def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
+    """Check path C's result and time it beside the transfer route and
+    stage by stage; returns the match kernel's and its plain version's
+    times and largest difference on the path's own segments."""
+    from tpu_blosc_torch import chunk, device as dev, match as tm
+    from tpu_blosc_torch.filters import kernels, match as fm
+    from tpu_blosc_torch.native import backend as nb
+
+    host_bytes = x.cpu().numpy().tobytes()
+    transfer = tbt.compress_array(x, opts)
+    check(frame != transfer, "C: the match frame differs from the transfer frame")
+    check(tbt.decompress(frame) == host_bytes, "C: host decode of the match frame")
+    check(torch.equal(dev.tensor_bytes(y), dev.tensor_bytes(x)),
+          "C: decompress_array(strategy='device') gives x")
+    part = x[: 4 * MIB]
+    check(tbt.compress_array(part, opts, strategy="match")
+          == tbt.compress_array(part.cpu(), opts, strategy="match"),
+          "C: the CUDA route's frame equals the CPU route's on 16 MiB")
+
+    n = x.numel() * 4
+    gb = n / 1e9
+    t_m = host_s(lambda: tbt.compress_array(x, opts, strategy="match"), reps=3)
+    t_t = host_s(lambda: tbt.compress_array(x, opts), reps=3)
+    t_d = host_s(lambda: tbt.decompress_array(frame, x.dtype, device=DEVICE,
+                                              strategy="device"), reps=3)
+    print(f"C f32 tiled + 1% noise, LZ4 match: {n} bytes, ratio {n / len(frame):.2f} "
+          f"(transfer frame {n / len(transfer):.2f}); medians of 3: "
+          f"compress_array(match) {gb / t_m:.3f} GB/s ({t_m * 1e3:.3f} ms), "
+          f"compress_array(transfer) {gb / t_t:.3f} GB/s ({t_t * 1e3:.3f} ms), "
+          f"decompress_array(device) of the match frame {gb / t_d:.3f} GB/s "
+          f"({t_d * 1e3:.3f} ms)")
+
+    # the stages of compress_array_match, run one by one
+    bs, ts = opts.block_size, 4
+    seg, nb_full = bs // ts, n // bs
+    flat = dev.tensor_bytes(x)
+    offsets = tm.match_offsets(seg)
+    blocks = flat.view(nb_full, bs)
+    segs = tbt.filters.shuffle_blocks(blocks, ts).view(-1, seg)
+    best = tm.count_best(segs, offsets)
+    offs = torch.tensor(offsets, dtype=torch.int32, device=DEVICE)
+    row_d = offs[best]
+    lit_counts_d, packed = tm.literal_mask(segs, row_d)
+    lit_counts = lit_counts_d.cpu().numpy().astype(np.int64)
+    d_all = np.asarray(offsets, dtype=np.int32)[best.cpu().numpy()]
+    sparse = lit_counts <= seg // 10
+    dense_idx = np.flatnonzero(~sparse)
+    n_real = int(lit_counts[sparse].sum())
+    mask = packed.cpu().numpy().reshape(-1)
+    pos = nb.mask_positions(mask, n_real)
+    vals = tm.gather_values(segs, pos)
+    dense = tm.gather_rows(segs, dense_idx.astype(np.int32)) if dense_idx.size else None
+    payloads, entries = tm.emit_blocks(opts, seg, bs, nb_full, d_all, sparse, pos,
+                                       vals, dense_idx, dense)
+    stages = {
+        "shuffle kernel": lambda: tbt.filters.shuffle_blocks(blocks, ts),
+        "count phase (torch ops)": lambda: tm.count_best(segs, offsets),
+        "match kernel": lambda: fm.match_nibble(segs, row_d),
+        "mask (kernel + popcount + pack)": lambda: tm.literal_mask(segs, row_d),
+        "mask copy": lambda: packed.cpu(),
+        "position scan": lambda: nb.mask_positions(mask, n_real),
+        "gather and value copy": lambda: tm.gather_values(segs, pos),
+        "dense rows": lambda: (tm.gather_rows(segs, dense_idx.astype(np.int32))
+                               if dense_idx.size else None),
+        "emit and re-encode": lambda: tm.emit_blocks(opts, seg, bs, nb_full, d_all,
+                                                     sparse, pos, vals, dense_idx, dense),
+        "frame": lambda: chunk.split_header(opts, n, bs, entries, sum(map(len, payloads)))
+        + b"".join(payloads),
+    }
+    times = {k: host_s(f, reps=3) * 1e3 for k, f in stages.items()}
+    print(f"C stages (ms, medians of 3): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"C records: {int(sparse.sum())} of {sparse.size} rows sparse, {n_real} literals "
+          f"({n_real / n:.4%} of bytes), {len(dense_idx)} dense rows, offsets used "
+          f"{sorted(set(d_all.tolist()))}, {sum(1 for e in entries if e & 0x80000000)} "
+          f"blocks stored raw")
+
+    got = kernels.match_nibble(segs, row_d, fm.ROW_TAIL_LITERALS, fm.MATCH_T)
+    want = fm.match_nibble_plain(segs, row_d)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"match kernel vs plain on C's segments {tuple(segs.shape)}")
+    t = {
+        "max_abs_err": int((got.int() - want.int()).abs().max()),
+        "ms": cuda_ms(lambda: kernels.match_nibble(segs, row_d, 16, 8), iters=10),
+        "plain_ms": cuda_ms(lambda: fm.match_nibble_plain(segs, row_d), iters=5, warmup=1),
+    }
+    print(f"match kernel times on C's segments {tuple(segs.shape)} at their offsets: "
+          f"kernel {t['ms']:.4f} ms = {segs.numel() / t['ms'] / 1e6:.1f} GB/s, plain "
+          f"{t['plain_ms']:.4f} ms = {segs.numel() / t['plain_ms'] / 1e6:.1f} GB/s "
+          f"(GB/s of input bytes); equal outputs")
+    return t
+
+
+def phase_advisors(tbt, rng, cases) -> dict:
+    """suggest_codec and suggest_options on the card; returns the probe
+    kernel's launches in those calls."""
+    from tpu_blosc_torch import api
+    from tpu_blosc_torch.filters import kernels, probe as tp
+
+    datasets = [(name, x.cpu().numpy().tobytes(), opts.type_size) for name, x, opts in cases]
+    datasets.append(("random bytes", rng.integers(0, 256, 64 * MIB, dtype=np.uint8).tobytes(), 1))
+    kernels.reset_launches()
+    advice = [(tbt.suggest_codec(data, type_size=ts), tbt.suggest_options(data, type_size=ts))
+              for _, data, ts in datasets]
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["probe_tiles"] >= len(datasets), "probe kernel launched by suggest_codec")
+    for (name, data, ts), (codec, options) in zip(datasets, advice):
+        sample = api._probe_sample(data, 1 << 22, ts)
+        shuffled = tbt.filters.shuffle_bytes(sample, ts) if ts > 1 else np.frombuffer(sample, np.uint8)
+        stats = tp.stream_probe(shuffled.tobytes())
+        print(f"advisors, {name} ({len(data)} bytes, ts {ts}): suggest_codec {codec.name}, "
+              f"suggest_options {options.codec.name}/{options.shuffle.name}; probe on the "
+              f"card: run_fraction {stats['run_fraction']:.6f}, mean_byte "
+              f"{stats['mean_byte']:.4f}, n {stats['n']}; NumPy all-pairs run_fraction "
+              f"{api._run_fraction(shuffled):.6f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; it runs only on a GPU",
@@ -267,12 +510,14 @@ def main() -> int:
 
     phase_environment()
     kern = phase_kernels(rng)
+    match_k = phase_match_kernel(rng)
+    probe_k = phase_probe_kernel(rng)
     cases = make_cases(tbt, rng)
 
     kernels.reset_launches()
     results = run_main_path(tbt, cases)
     launches = dict(kernels.launches)
-    print(f"main path launches: {launches}")
+    print(f"main paths A and B, launches: {launches}")
     check(launches["shuffle_blocks"] >= len(cases), "shuffle kernel launched by compress_array")
     check(launches["unshuffle_blocks"] >= len(cases), "unshuffle kernel launched by decompress_array")
 
@@ -281,20 +526,42 @@ def main() -> int:
         if name.startswith("B"):
             check(n_raw >= 1, "B: the random block took the memcpy fallback")
 
+    x_c = torch.from_numpy(match_data()).to(DEVICE)
+    opts_c = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE,
+                         type_size=4, block_size=MIB)
+    kernels.reset_launches()
+    frame_c, y_c = run_path_c(tbt, x_c, opts_c)
+    launches_c = dict(kernels.launches)
+    print(f"main path C, launches: {launches_c}")
+    check(launches_c["match_nibble"] >= 1, "match kernel launched by compress_array(match)")
+    match_c = check_and_time_path_c(tbt, x_c, opts_c, frame_c, y_c)
+    del x_c, y_c
+
+    launches_adv = phase_advisors(tbt, rng, cases)
+    print(f"advisors, launches: {launches_adv}")
+
     t4 = kern["times"][4]
+    src = "tpu_blosc_torch/csrc/"
+    pk = "tpu_blosc/filters/pallas_kernels.py:"
+    probe_entry = {"name": "tpbt_probe_tiles", "route": "cuda", "source": src + "probe.cu",
+                   "launches": launches_adv["probe_tiles"],
+                   "max_abs_err": probe_k["max_abs_err"],
+                   "ms": probe_k["ms"], "plain_ms": probe_k["plain_ms"]}
     print(json.dumps({"kernels": [
-        {"name": "tpbt_shuffle_blocks", "route": "cuda",
-         "source": "tpu_blosc_torch/csrc/shuffle.cu",
-         "replaces": "tpu_blosc/filters/pallas_kernels.py:293",
-         "launches": launches["shuffle_blocks"],
+        {"name": "tpbt_shuffle_blocks", "route": "cuda", "source": src + "shuffle.cu",
+         "replaces": pk + "293", "launches": launches["shuffle_blocks"],
          "max_abs_err": kern["max_abs_err"],
          "ms": t4["shuffle"], "plain_ms": t4["shuffle_plain"]},
-        {"name": "tpbt_unshuffle_blocks", "route": "cuda",
-         "source": "tpu_blosc_torch/csrc/shuffle.cu",
-         "replaces": "tpu_blosc/filters/pallas_kernels.py:315",
-         "launches": launches["unshuffle_blocks"],
+        {"name": "tpbt_unshuffle_blocks", "route": "cuda", "source": src + "shuffle.cu",
+         "replaces": pk + "315", "launches": launches["unshuffle_blocks"],
          "max_abs_err": kern["max_abs_err"],
          "ms": t4["unshuffle"], "plain_ms": t4["unshuffle_plain"]},
+        {"name": "tpbt_match_nibble", "route": "cuda", "source": src + "match.cu",
+         "replaces": pk + "463", "launches": launches_c["match_nibble"],
+         "max_abs_err": max(match_k["max_abs_err"], match_c["max_abs_err"]),
+         "ms": match_c["ms"], "plain_ms": match_c["plain_ms"]},
+        {**probe_entry, "replaces": pk + "125"},
+        {**probe_entry, "replaces": pk + "126"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

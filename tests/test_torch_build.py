@@ -88,3 +88,47 @@ def test_failed_build_raises_with_each_commands_stderr(tmp_path):
         buildlib.ensure_built(out, [src], cmds)
     assert "rung 0 failed" in str(info.value) and "rung 1 failed" in str(info.value)
     assert not os.path.exists(out)
+
+
+# a build step that needs its partner running at the same time: it marks
+# itself started, then waits for the other's mark
+STEP = textwrap.dedent("""
+    import os, sys, time
+    mine, other = sys.argv[1], sys.argv[2]
+    open(mine, "w").close()
+    deadline = time.time() + 60
+    while not os.path.exists(other):
+        if time.time() > deadline:
+            sys.exit("partner step never started")
+        time.sleep(0.01)
+""")
+
+
+def test_together_commands_run_at_once_before_the_ladder(tmp_path):
+    out, src, log, cc = _paths(tmp_path)
+    step = tmp_path / "step.py"
+    step.write_text(STEP)
+    a, b = str(tmp_path / "a.o"), str(tmp_path / "b.o")
+    together = [[sys.executable, str(step), a, b], [sys.executable, str(step), b, a]]
+    assert buildlib.ensure_built(
+        out, [src], [[sys.executable, cc, buildlib.OUT, log]], together=together
+    ) > 0
+    assert os.path.exists(a) and os.path.exists(b)
+    assert open(out, "rb").read() == b"library"
+    # up to date: no step runs again
+    os.remove(a)
+    assert buildlib.ensure_built(out, [src], [], together=together) == 0.0
+    assert not os.path.exists(a)
+
+
+def test_failed_together_command_raises_and_skips_the_ladder(tmp_path):
+    out, src, log, cc = _paths(tmp_path)
+    together = [
+        [sys.executable, "-c", "pass"],
+        [sys.executable, "-c", "import sys; sys.exit('compile of b.cu failed')"],
+    ]
+    with pytest.raises(RuntimeError, match="compile of b.cu failed"):
+        buildlib.ensure_built(
+            out, [src], [[sys.executable, cc, buildlib.OUT, log]], together=together
+        )
+    assert not os.path.exists(out) and not os.path.exists(log)

@@ -330,15 +330,18 @@ def test_decompress_array_dtype_mismatch():
     "call",
     [
         lambda x: tb.compress_array(x, strategy="rle"),
-        lambda x: tb.compress_array(x, strategy="match"),
         lambda x: tb.compress_array(
             x, tb.Options(shuffle=tb.Shuffle.BITSHUFFLE, block_size=16384)
+        ),
+        lambda x: tb.compress_array(
+            x, tb.Options(shuffle=tb.Shuffle.BITSHUFFLE, block_size=16384),
+            strategy="match",
         ),
         lambda x: tb.decompress_array(
             tb.compress_array(x), torch.float32, device="cpu", strategy="records"
         ),
     ],
-    ids=["rle", "match", "bitshuffle-on-device", "records"],
+    ids=["rle", "bitshuffle-on-device", "match-bitshuffle-on-device", "records"],
 )
 def test_unported_paths_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

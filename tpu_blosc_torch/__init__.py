@@ -12,7 +12,10 @@ codec, compiled from ``tpu_blosc/native/tpublosc.cpp``.
                              strategy="device")
 
 The byte shuffle of a device tensor runs in hand-written CUDA kernels
-(``csrc/shuffle.cu``), built with nvcc at first use.
+(``csrc/shuffle.cu``), built with nvcc at first use, and so do the
+match strategy's literal mask (``csrc/match.cu``, behind
+``compress_array(..., strategy="match")``) and the probe behind
+``suggest_codec`` (``csrc/probe.cu``).
 """
 
 from .api import (
@@ -21,6 +24,8 @@ from .api import (
     decompress_into,
     decompress_with_size,
     get_decompressed_size,
+    suggest_codec,
+    suggest_options,
 )
 from .device import compress_array, decompress_array
 from .errors import (
@@ -59,4 +64,6 @@ __all__ = [
     "decompress_into",
     "decompress_with_size",
     "get_decompressed_size",
+    "suggest_codec",
+    "suggest_options",
 ]

@@ -3,7 +3,9 @@
 Counterpart: ``tpu_blosc/api.py``: ``AUTO_BLOCK_THRESHOLD`` (:62),
 ``compress_with_options`` -> ``_compress_frame_sized`` -> the single-block
 native path (:175-223), ``decompress`` / ``decompress_with_size`` (:412-507),
-``decompress_into`` (:702-766) and ``get_decompressed_size`` (:895-902).
+``decompress_into`` (:702-766), the advisors ``suggest_codec`` and
+``suggest_options`` with ``_probe_sample`` and ``_run_fraction``
+(:769-878), and ``get_decompressed_size`` (:895-902).
 
 The frames are byte-identical to the JAX package's: both run the same
 native codec.  When the memcpy fallback stores raw bytes in a single-block
@@ -16,8 +18,10 @@ NotImplementedError here.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import chunk as _chunk
+from . import filters
 from .errors import (
     DataTooLargeError,
     InvalidCodecError,
@@ -25,7 +29,8 @@ from .errors import (
     InvalidHeaderError,
     SizeMismatchError,
 )
-from .format import HEADER_SIZE, MAX_UINT32, Codec, parse_header
+from .filters import probe as _probe
+from .format import HEADER_SIZE, MAX_UINT32, Codec, Shuffle, parse_header
 from .native import backend as _nb
 from .options import Options
 
@@ -199,6 +204,74 @@ def decompress_into(data, out) -> int:
             )
     view[:n] = np.frombuffer(decompress_with_size(raw, 0), dtype=np.uint8)
     return n
+
+
+def _probe_sample(raw: bytes, sample_bytes: int, type_size: int) -> bytes:
+    """Eight evenly spaced windows spanning the input, each a whole
+    number of elements, when it is longer than ``sample_bytes``."""
+    if len(raw) <= sample_bytes:
+        return raw
+    ts = max(type_size, 1)
+    k = 8
+    win = max(sample_bytes // k // ts * ts, ts)
+    stride = max((len(raw) - win) // (k - 1) // ts * ts, win)
+    parts = [raw[i * stride : i * stride + win] for i in range(k)]
+    return b"".join(p for p in parts if p)
+
+
+def _run_fraction(sample: np.ndarray) -> float:
+    pairs = max(sample.size - 1, 1)
+    return float(np.count_nonzero(sample[1:] == sample[:-1])) / pairs
+
+
+def _codec_for(run_fraction: float) -> Codec:
+    if run_fraction >= 0.30:
+        return Codec.LZ4  # run-dominated: match copies at memory speed
+    if run_fraction >= 0.02:
+        return Codec.ZSTD  # structured but not run-heavy: entropy coding
+    return Codec.LZ4  # near-random: fastest attempt, memcpy fallback
+
+
+def suggest_codec(data, type_size: int = 4, sample_bytes: int = 1 << 22) -> Codec:
+    """Recommend a codec from a one-pass probe of a byte-shuffled sample
+    spanning the input (≙ tpu_blosc/api.py:788-828).
+
+    With a CUDA device the probe runs there (filters/probe.py, 3 of every
+    4 adjacent byte pairs, as tpu_blosc's TPU probe); without one, NumPy
+    counts all pairs, as tpu_blosc does off the TPU.  A failed probe
+    raises.
+    """
+    raw = _probe_sample(_coerce_bytes(data), sample_bytes, type_size)
+    if len(raw) == 0:
+        raise InvalidDataError("blosc: invalid compressed data: empty input")
+    if type_size > 1 and len(raw) >= type_size:
+        raw = filters.shuffle_bytes(raw, type_size).tobytes()
+    if torch.cuda.is_available():
+        rf = _probe.stream_probe(raw)["run_fraction"]
+    else:
+        rf = _run_fraction(np.frombuffer(raw, dtype=np.uint8))
+    return _codec_for(rf)
+
+
+def suggest_options(data, type_size: int = 4,
+                    sample_bytes: int = 1 << 22) -> Options:
+    """Recommend the filter and the codec (≙ tpu_blosc/api.py:836-878):
+    the filter whose output of the sample has the most adjacent equal
+    bytes (byte shuffle wins ties, then none, then bit shuffle), and the
+    codec for that stream as in suggest_codec."""
+    raw = _probe_sample(_coerce_bytes(data), sample_bytes, type_size)
+    if len(raw) == 0:
+        raise InvalidDataError("blosc: invalid compressed data: empty input")
+    type_size = type_size if type_size > 0 else 1
+    candidates = [(_run_fraction(np.frombuffer(raw, dtype=np.uint8)), Shuffle.NOSHUFFLE)]
+    if type_size > 1 and len(raw) >= 8 * type_size:
+        candidates.append((_run_fraction(filters.shuffle_bytes(raw, type_size)),
+                           Shuffle.SHUFFLE))
+        candidates.append((_run_fraction(filters.bit_shuffle(raw, type_size)),
+                           Shuffle.BITSHUFFLE))
+    order = {Shuffle.SHUFFLE: 0, Shuffle.NOSHUFFLE: 1, Shuffle.BITSHUFFLE: 2}
+    rf, mode = max(candidates, key=lambda c: (c[0], -order[c[1]]))
+    return Options(codec=_codec_for(rf), shuffle=mode, type_size=type_size)
 
 
 def get_decompressed_size(data) -> int:

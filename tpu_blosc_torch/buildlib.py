@@ -1,7 +1,7 @@
 """Build a shared library from sources in the checkout, once per change.
 
 The port builds two libraries at first use: the native host codec (g++,
-native/backend.py) and the CUDA shuffle kernels (nvcc, filters/kernels.py).
+native/backend.py) and the CUDA kernels (nvcc, filters/kernels.py).
 Both land in ``tpu_blosc_torch/_build/``, which git ignores.  Several
 processes may import the port at once (test workers), so a build holds an
 exclusive ``fcntl`` lock next to its output and writes to a temporary name
@@ -28,13 +28,32 @@ def _fresh(out: str, sources: list[str]) -> bool:
     return all(os.path.getmtime(s) <= built for s in sources)
 
 
-def ensure_built(out: str, sources: list[str], commands: list[list[str]]) -> float:
+def _run_together(commands: list[list[str]]) -> None:
+    """Start every command at once and wait for all; raise RuntimeError
+    with the stderr of each that failed."""
+    procs = [
+        subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                         text=True)
+        for argv in commands
+    ]
+    failures = []
+    for argv, proc in zip(commands, procs):
+        _, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            failures.append(" ".join(argv) + "\n" + err[-4000:])
+    if failures:
+        raise RuntimeError("build step failed:\n" + "\n".join(failures))
+
+
+def ensure_built(out: str, sources: list[str], commands: list[list[str]],
+                 together: list[list[str]] = ()) -> float:
     """Build ``out`` unless it is newer than every file in ``sources``.
 
-    ``commands`` are tried in order (a flag ladder); the first to exit 0
-    wins.  Returns the seconds spent building, 0.0 when ``out`` was
-    already up to date.  Raises RuntimeError with each command's stderr
-    when none succeeds.
+    The ``together`` commands (one compile per source, say) run first,
+    all at once; then ``commands`` are tried in order (a flag ladder), and
+    the first to exit 0 wins.  Returns the seconds spent building, 0.0
+    when ``out`` was already up to date.  Raises RuntimeError with the
+    stderr of each failed command.
     """
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out + ".lock", "w") as lock:
@@ -45,6 +64,7 @@ def ensure_built(out: str, sources: list[str], commands: list[list[str]]) -> flo
         t0 = time.perf_counter()
         failures = []
         try:
+            _run_together(together)
             for cmd in commands:
                 argv = [tmp if a == OUT else a for a in cmd]
                 proc = subprocess.run(

@@ -1,8 +1,9 @@
 """Device tensors in, Blosc frames out, and back.
 
-Counterpart: ``tpu_blosc/device.py``, the transfer strategy of
-``compress_array`` (:692-876) and the transfer and device strategies of
-``decompress_array`` (:1455-1535, :1592-1710).
+Counterpart: ``tpu_blosc/device.py``, the transfer, match and auto
+strategies of ``compress_array`` (:692-876; match in ``match.py``) and
+the transfer and device strategies of ``decompress_array`` (:1455-1535,
+:1592-1710).
 
 Compress: every full block of the tensor's bytes is byte-shuffled on the
 tensor's device (filters.batched.shuffle_blocks), the filtered stream
@@ -15,8 +16,13 @@ Decompress ("device"): the host decodes the codec stage only, one copy
 takes the still-filtered stream to the device, and the device unshuffles
 it, passing blocks that were stored raw through untouched.
 
-The rle, match and records strategies and bitshuffle on the device are
-not ported yet and raise NotImplementedError.
+Match ("match", and "auto", which is the same): for LZ4 and LZ4HC, match
+discovery on the device and LZ4 streams written from literal records
+(``match.py``); other codecs, and data the match strategy does not suit,
+take the transfer route.
+
+The rle and records strategies and bitshuffle on the device are not
+ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from . import filters
+from . import match as _match
 from .api import (
     AUTO_BLOCK_THRESHOLD,
     compress_with_options,
@@ -41,7 +48,7 @@ from .chunk import (
     payload_offsets,
 )
 from .errors import InvalidCodecError, InvalidDataError
-from .format import HEADER_SIZE, Shuffle, parse_header
+from .format import HEADER_SIZE, Codec, Shuffle, parse_header
 from .native import backend as _nb
 from .options import Options
 
@@ -76,9 +83,11 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
 
     ``opts.type_size`` left at the default (4) takes the dtype's element
     size instead, as in tpu_blosc/device.py:740-747.  Single-block,
-    unfiltered and sub-block inputs take the host route.
+    unfiltered and sub-block inputs take the host route.  ``strategy``
+    is "transfer" (frames byte-identical to the host path), or "match" or
+    "auto" (see the module docstring).
     """
-    if strategy != "transfer":
+    if strategy not in ("transfer", "match", "auto"):
         raise NotImplementedError(_STRATEGY_TODO.format(strategy))
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"compress_array takes a torch.Tensor, got {type(x)!r}")
@@ -101,6 +110,10 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
         return compress_with_options(flat.cpu().numpy(), opts)
     if opts.shuffle == Shuffle.BITSHUFFLE:
         raise NotImplementedError(_BITSHUFFLE_TODO)
+    if strategy != "transfer" and opts.codec in (Codec.LZ4, Codec.LZ4HC):
+        frame = _match.compress_array_match(flat, opts, nb_full, block_size)
+        if frame is not None:
+            return frame
     filtered = _device_filter_fetch(flat, opts.type_size, nb_full, block_size)
     return _compress_array_stage2(filtered, opts, block_size)
 
@@ -146,17 +159,6 @@ def _compress_array_stage2(filtered: np.ndarray, opts: Options,
     )
 
 
-def _target_device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "decompress_array: no CUDA device is available; pass "
-            "device='cpu' to decode onto the host"
-        )
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
                      strategy: str = "auto") -> torch.Tensor:
     """Decompress a frame into a tensor of ``dtype`` on ``device``.
@@ -169,7 +171,7 @@ def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
     """
     if strategy not in ("auto", "transfer", "device"):
         raise NotImplementedError(_STRATEGY_TODO.format(strategy))
-    target = _target_device(device)
+    target = filters.target_device(device, "decompress_array")
     n = get_decompressed_size(data)
     if n % dtype.itemsize:
         raise InvalidDataError(

@@ -17,8 +17,10 @@ from .batched import shuffle_blocks, unshuffle_blocks
 
 __all__ = [
     "backend_name",
+    "bit_shuffle",
     "shuffle_blocks",
     "shuffle_bytes",
+    "target_device",
     "unshuffle_blocks",
     "unshuffle_bytes",
 ]
@@ -39,3 +41,23 @@ def shuffle_bytes(src, type_size: int) -> np.ndarray:
 def unshuffle_bytes(src, type_size: int) -> np.ndarray:
     """Inverse of shuffle_bytes."""
     return _native.unshuffle(src, type_size)
+
+
+def bit_shuffle(src, type_size: int) -> np.ndarray:
+    """Whole-buffer bit shuffle on the host (native), in the reference's
+    local groups of 8 elements; bytes past the last whole group are
+    copied verbatim."""
+    return _native.bitshuffle(src, type_size)
+
+
+def target_device(device, caller: str) -> torch.device:
+    """``device`` as a torch.device; None means the current CUDA device,
+    and raises RuntimeError when there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller}: no CUDA device is available; pass device='cpu' "
+            "to run on the host"
+        )
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,21 +1,32 @@
-"""The CUDA byte-shuffle kernels: nvcc build, ctypes binding, launches.
+"""The CUDA kernels: nvcc build, ctypes binding, launches.
 
-The source is ``tpu_blosc_torch/csrc/shuffle.cu``; it replaces the TPU
-kernels ``byte_plane_split`` and ``byte_plane_merge``
-(``tpu_blosc/filters/pallas_kernels.py:292-333``).  It is compiled with
-nvcc for ``sm_90a`` into ``tpu_blosc_torch/_build/`` at the first launch,
-as a shared library with a plain C interface, and bound with ctypes.
-Nothing here is built or loaded when the module is imported.
+Every ``.cu`` file under ``tpu_blosc_torch/csrc/`` goes into one shared
+library with a plain C interface:
+
+- ``shuffle.cu``: ``tpbt_shuffle_blocks`` / ``tpbt_unshuffle_blocks``,
+  replacing ``byte_plane_split`` and ``byte_plane_merge``
+  (``tpu_blosc/filters/pallas_kernels.py:292-333``);
+- ``match.cu``: ``tpbt_match_nibble``, replacing
+  ``match_select_open_nibble`` (:343-497);
+- ``probe.cu``: ``tpbt_probe_tiles``, replacing ``_probe_runs`` and
+  ``_probe_bytesum`` (:80-126).
+
+nvcc compiles each source for ``sm_90a``, all at once, into
+``tpu_blosc_torch/_build/`` at the first launch; a change to any source
+rebuilds the library.  Nothing here is built or loaded when the module is
+imported.
 
 Each wrapper takes CUDA tensors only, launches on PyTorch's current
 stream, and raises when the launch is refused.  ``launches`` counts the
 launches of each kernel, so a caller can show that a path went through
-it.  The plain PyTorch versions live in ``filters/batched.py``.
+it.  The plain PyTorch versions live in ``filters/batched.py``,
+``filters/match.py`` and ``filters/probe.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import threading
@@ -24,17 +35,25 @@ import torch
 
 from .. import buildlib
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "shuffle.cu"
+CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-LIB_PATH = os.path.join(buildlib.BUILD_DIR, "libtpbt_shuffle.so")
+SOURCES = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+LIB_PATH = os.path.join(buildlib.BUILD_DIR, "libtpbt_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 ]
 
 # launches of each kernel since the last reset_launches()
-launches = {"shuffle_blocks": 0, "unshuffle_blocks": 0}
+launches = {"shuffle_blocks": 0, "unshuffle_blocks": 0, "match_nibble": 0,
+            "probe_tiles": 0}
+
+# the match kernel's halo bounds the run length (csrc/match.cu kHalo + 1)
+MATCH_MAX_T = 9
+# the probe's layout: int32 words per row, rows per 1 MiB tile
+PROBE_LANES = 512
+PROBE_TILE_ROWS = 512
 
 _lib = None
 _load_lock = threading.Lock()
@@ -56,21 +75,34 @@ def nvcc() -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The kernel library, built first if the source changed."""
+    """The kernel library, built first if a source changed."""
     global _lib, build_seconds
     if _lib is None:
         with _load_lock:
             if _lib is None:
+                objects = [
+                    os.path.join(buildlib.BUILD_DIR, os.path.basename(src) + ".o")
+                    for src in SOURCES
+                ]
                 build_seconds = buildlib.ensure_built(
-                    LIB_PATH, [SOURCE],
-                    [[nvcc(), *NVCC_FLAGS, SOURCE, "-o", buildlib.OUT]],
+                    LIB_PATH, SOURCES,
+                    [[nvcc(), "-shared", *objects, "-o", buildlib.OUT]],
+                    together=[
+                        [nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj]
+                        for src, obj in zip(SOURCES, objects)
+                    ],
                 )
                 handle = ctypes.CDLL(LIB_PATH)
                 p, i64 = ctypes.c_void_p, ctypes.c_int64
-                handle.tpbt_shuffle_blocks.restype = ctypes.c_int
-                handle.tpbt_shuffle_blocks.argtypes = [p, p, i64, i64, i64, p]
-                handle.tpbt_unshuffle_blocks.restype = ctypes.c_int
-                handle.tpbt_unshuffle_blocks.argtypes = [p, p, p, i64, i64, i64, p]
+                for name, argtypes in (
+                    ("tpbt_shuffle_blocks", [p, p, i64, i64, i64, p]),
+                    ("tpbt_unshuffle_blocks", [p, p, p, i64, i64, i64, p]),
+                    ("tpbt_match_nibble", [p, p, p, i64, i64, i64, i64, p]),
+                    ("tpbt_probe_tiles", [p, i64, p, p]),
+                ):
+                    fn = getattr(handle, name)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = argtypes
                 _lib = handle
     return _lib
 
@@ -90,6 +122,34 @@ def check_blocks(blocks: torch.Tensor, type_size: int) -> None:
         raise ValueError(
             f"block size {blocks.shape[1]} is not a multiple of type_size {type_size}"
         )
+
+
+def check_match_args(segs: torch.Tensor, row_d: torch.Tensor, tail: int,
+                     T: int) -> None:
+    """The geometry every route takes: contiguous (nseg, seg) uint8 with
+    seg % 4 == 0 and seg >= T, a (nseg,) int32 offset per row on the same
+    device, ``tail >= 0`` and ``1 <= T <= 9``."""
+    if tail < 0 or not 1 <= T <= MATCH_MAX_T:
+        raise ValueError(f"need tail >= 0 and 1 <= T <= {MATCH_MAX_T}, got {tail}, {T}")
+    if segs.dtype != torch.uint8 or segs.dim() != 2 or not segs.is_contiguous():
+        raise ValueError("segs must be a contiguous 2-D uint8 tensor")
+    nseg, seg = segs.shape
+    if seg < max(T, 4) or seg % 4:
+        raise ValueError(f"segment length {seg} is not a multiple of 4 of at least {max(T, 4)}")
+    if row_d.dtype != torch.int32 or row_d.shape != (nseg,) or not row_d.is_contiguous():
+        raise ValueError(f"row_d must be a contiguous int32 tensor of shape ({nseg},)")
+    if row_d.device != segs.device:
+        raise ValueError(f"row_d is on {row_d.device}, segs on {segs.device}")
+
+
+def check_words(words: torch.Tensor) -> None:
+    """The probe's layout, on every route: a contiguous (rows, 512)
+    int32 tensor."""
+    if (words.dtype != torch.int32 or words.dim() != 2
+            or words.shape[1] != PROBE_LANES):
+        raise TypeError("device arrays must be (rows, 512) int32; use probe_ready()")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
 
 
 def _check_cuda(t: torch.Tensor, device: torch.device, what: str) -> None:
@@ -113,11 +173,15 @@ def _raise_if_failed(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {t.device}")
+
+
 def shuffle_blocks(blocks: torch.Tensor, type_size: int,
                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Byte-shuffle each row of a CUDA (nb, bs) uint8 tensor."""
-    if blocks.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {blocks.device}")
+    _require_cuda(blocks)
     check_blocks(blocks, type_size)
     out = _output(blocks, out)
     nb, bs = blocks.shape
@@ -138,8 +202,7 @@ def unshuffle_blocks(blocks: torch.Tensor, type_size: int,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Inverse of shuffle_blocks; rows where ``keep_raw`` (a (nb,) bool
     tensor) is True are copied verbatim."""
-    if blocks.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {blocks.device}")
+    _require_cuda(blocks)
     check_blocks(blocks, type_size)
     out = _output(blocks, out)
     nb, bs = blocks.shape
@@ -158,4 +221,47 @@ def unshuffle_blocks(blocks: torch.Tensor, type_size: int,
         )
     _raise_if_failed(rc, "tpbt_unshuffle_blocks")
     launches["unshuffle_blocks"] += 1
+    return out
+
+
+def match_nibble(segs: torch.Tensor, row_d: torch.Tensor, tail: int,
+                 T: int) -> torch.Tensor:
+    """Literal-mask nibbles of a CUDA (nseg, seg) uint8 tensor at each
+    row's offset ``row_d`` (a (nseg,) int32 CUDA tensor): an (nseg,
+    seg/4) uint8 tensor whose byte j holds bit t = byte 4j+t is literal."""
+    _require_cuda(segs)
+    check_match_args(segs, row_d, tail, T)
+    nseg, seg = segs.shape
+    out = torch.empty((nseg, seg // 4), dtype=torch.uint8, device=segs.device)
+    if nseg == 0:
+        return out
+    with torch.cuda.device(segs.device):
+        rc = lib().tpbt_match_nibble(
+            segs.data_ptr(), row_d.data_ptr(), out.data_ptr(), nseg, seg,
+            tail, T, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "tpbt_match_nibble")
+    launches["match_nibble"] += 1
+    return out
+
+
+def probe_tiles(words: torch.Tensor) -> torch.Tensor:
+    """Per-tile (runs, byte sum) of a CUDA (tiles*512, 512) int32 tensor,
+    as a (tiles, 2) int32 tensor; rows past the last whole tile are not
+    read."""
+    _require_cuda(words)
+    check_words(words)
+    if words.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary")
+    tiles = words.shape[0] // PROBE_TILE_ROWS
+    out = torch.zeros((tiles, 2), dtype=torch.int32, device=words.device)
+    if tiles == 0:
+        return out
+    with torch.cuda.device(words.device):
+        rc = lib().tpbt_probe_tiles(
+            words.data_ptr(), tiles, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "tpbt_probe_tiles")
+    launches["probe_tiles"] += 1
     return out

@@ -75,8 +75,16 @@ _SIGNATURES = {
         _p, _i64,                # out, n
         _int, _int, _int,        # ts, shuffle_mode, codec
     ]),
+    "tpb_lz4_compress": (_i64, [_p, _i64, _p, _i64, _int]),
+    "tpb_lz4_emit_mixed": (_i64, [
+        _p, _p, _i64,            # lit_pos, lit_bytes, nlit
+        _p, _i64, _i64,          # row_d, seg, n
+        _p, _i64,                # dst, cap
+    ]),
+    "tpb_mask_positions": (_i64, [_p, _i64, _p, _i64]),
     "tpb_shuffle": (None, [_p, _p, _i64, _int]),
     "tpb_unshuffle": (None, [_p, _p, _i64, _int]),
+    "tpb_bitshuffle": (None, [_p, _p, _i64, _int]),
     "tpb_bitunshuffle": (None, [_p, _p, _i64, _int]),
 }
 
@@ -157,8 +165,65 @@ def unshuffle(data, type_size: int) -> np.ndarray:
     return _shuffle_call("tpb_unshuffle", data, type_size)
 
 
+def bitshuffle(data, type_size: int) -> np.ndarray:
+    """Whole-buffer bit shuffle in local groups of 8 elements; the bytes
+    past the last whole group are copied verbatim."""
+    return _shuffle_call("tpb_bitshuffle", data, type_size)
+
+
 def bitunshuffle(data, type_size: int) -> np.ndarray:
     return _shuffle_call("tpb_bitunshuffle", data, type_size)
+
+
+def lz4_compress(data, depth: int = 1) -> bytes:
+    """One LZ4 block; ``depth`` > 1 is the LZ4HC chain depth
+    (≙ tpu_blosc/native/backend.py:281-290)."""
+    a = as_u8(data)
+    cap = a.size + a.size // 255 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    written = lib().tpb_lz4_compress(_addr(a), a.size, _addr(out), cap, depth)
+    if written < 0:
+        raise RuntimeError(f"native lz4 compress failed ({written})")
+    return out[:written].tobytes()
+
+
+def lz4_emit_mixed(lit_pos: np.ndarray, lit_bytes: np.ndarray,
+                   row_d: np.ndarray, seg: int, n: int,
+                   cap: int | None = None) -> bytes | None:
+    """A standard LZ4 block from fixed-offset match records
+    (≙ tpu_blosc/native/backend.py:375-406).
+
+    ``lit_pos``/``lit_bytes`` are the block's literal positions (sorted)
+    and values; every other byte of row r (``seg`` bytes each) is a match
+    at offset ``row_d[r]``.  None when the stream would exceed ``cap``.
+    """
+    lit_pos = np.ascontiguousarray(lit_pos, dtype=np.int64)
+    lit_bytes = np.ascontiguousarray(lit_bytes, dtype=np.uint8)
+    row_d = np.ascontiguousarray(row_d, dtype=np.int32)
+    if cap is None:
+        cap = n + n // 255 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    written = lib().tpb_lz4_emit_mixed(
+        _addr(lit_pos), _addr(lit_bytes), lit_pos.size,
+        _addr(row_d), seg, n, _addr(out), cap,
+    )
+    if written == -1:
+        return None
+    if written < 0:
+        raise RuntimeError(f"lz4_emit_mixed failed ({written})")
+    return out[:written].tobytes()
+
+
+def mask_positions(mask: np.ndarray, nset: int) -> np.ndarray | None:
+    """Set-bit positions (sorted, int32) of a little-endian packed mask,
+    or None when it holds more than ``nset`` set bits
+    (≙ tpu_blosc/native/backend.py:409-425)."""
+    mask = np.ascontiguousarray(mask, dtype=np.uint8)
+    out = np.empty(nset, dtype=np.int32)
+    k = lib().tpb_mask_positions(_addr(mask), mask.size, _addr(out), nset)
+    if k < 0:
+        return None
+    return out[:k]
 
 
 def compress_slots(data, block_size: int, type_size: int, shuffle_mode: int,
