@@ -12,8 +12,14 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
 1. prints the card, its power limit, torch, CUDA and nvcc versions and
    the build times;
 2. holds each kernel against its plain PyTorch version on the card:
-   - the shuffle pair: random bytes, type sizes 2, 3, 4, 8 and 16, three
-     shapes each, timed at (64, 1 MiB) for type sizes 4 and 8;
+   - the shuffle pair, on both of its paths (vec16 and generic): random
+     bytes at type sizes 2, 3, 4, 5, 8, 12, 16, 32 and 300, each at
+     (1, 8 ts), (7, 4096 ts), (64, ~1 MiB) and a block of 24 elements
+     (bs/ts not a multiple of 16), with raw rows; (16384, 4096) at ts 4;
+     sources 1, 4 and 12 bytes off a 16-byte boundary; 2 GiB + 1 MiB at
+     ts 4; each launcher refusing a path whose preconditions fail.
+     Timed at (64, ~1 MiB) for type sizes 2, 3, 4, 8 and 16 and at
+     (16384, 4096) for ts 4;
    - the match kernel: seg 256, 4096, 16384 and 262144, random and
      periodic rows, offsets 1, 3, 48, 1024 and one that leaves the whole
      row literal (and, in step 5, path C's own (1024, 262144) segments at
@@ -36,8 +42,9 @@ exactly.  Path C's frame must differ from the transfer frame (the
 emitter engaged), decode to the tensor on the host and through
 decompress_array(strategy="device"), and equal, on a 16 MiB slice, the
 frame the CPU route (the kernels' plain versions) writes.  Every kernel
-must be launched by the path it serves: the launch counts are reset just
-before each path and read just after.  Any failure raises, so the script
+must be launched by the path it serves, and A, B and C must take the
+shuffle pair's vec16 path: the launch counts are reset just before each
+path and read just after.  Any failure raises, so the script
 exits non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
 """
@@ -120,52 +127,152 @@ def phase_environment() -> None:
           f"({len(kernels.SOURCES)} sources) {kernels.build_seconds:.1f} s compiling")
 
 
-def phase_kernels(rng) -> dict:
-    """Each kernel against its plain version; returns the largest error
-    and the times at (64, 1 MiB), ts 4 (for the JSON line)."""
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| of two uint8 tensors, without widening them."""
+    return int((torch.maximum(a, b) - torch.minimum(a, b)).max()) if a.numel() else 0
+
+
+def hold_shuffle_pair(x, ts, keep, path=None, out=None) -> tuple[int, set]:
+    """Shuffle ``x``, unshuffle the result plainly and with the ``keep``
+    rows raw, each on ``path`` (None: the one shuffle_path picks), and
+    hold all three to the plain versions; returns the largest error and
+    the paths the launches took."""
     from tpu_blosc_torch.filters import batched, kernels
 
+    before = dict(kernels.launches)
+    got = kernels.shuffle_blocks(x, ts, out=out, path=path)
+    back = kernels.unshuffle_blocks(got, ts, path=path)
+    kept = kernels.unshuffle_blocks(got, ts, keep_raw=keep, path=path)
+    torch.cuda.synchronize()
+    taken = {k for k, v in kernels.launches.items() if "." in k and v != before[k]}
+    what = f"ts={ts} shape={tuple(x.shape)} path={path or 'picked'} -> {sorted(taken)}"
     worst = 0
-    for ts in (2, 3, 4, 8, 16):
-        big = MIB // (8 * ts) * (8 * ts)
-        for nb, bs in ((1, 8 * ts), (7, 4096 * ts), (64, big)):
-            x = torch.from_numpy(rng.integers(0, 256, (nb, bs), dtype=np.uint8)).cuda()
-            keep = torch.from_numpy(rng.random(nb) < 0.5).cuda()
-            keep[0] = nb > 1  # a raw row and, where nb > 1, a filtered one
-            got = kernels.shuffle_blocks(x, ts)
-            back = kernels.unshuffle_blocks(got, ts)
-            kept = kernels.unshuffle_blocks(got, ts, keep_raw=keep)
-            torch.cuda.synchronize()
-            want = batched.shuffle_blocks_plain(x, ts)
-            pairs = (
-                (got, want),
-                (back, batched.unshuffle_blocks_plain(got, ts)),
-                (back, x),
-                (kept, batched.unshuffle_blocks_plain(got, ts, keep)),
-            )
-            for a, b in pairs:
-                check(torch.equal(a, b), f"kernel vs plain, ts={ts} shape={(nb, bs)}")
-                worst = max(worst, int((a.int() - b.int()).abs().max()))
-            check(torch.equal(kept[keep], got[keep]), f"keep_raw rows, ts={ts}")
-        print(f"kernels: ts={ts} equal to the plain versions at (1, {8 * ts}), "
-              f"(7, {4096 * ts}), (64, {big})")
+    for a, b in ((got, batched.shuffle_blocks_plain(x, ts)),
+                 (back, batched.unshuffle_blocks_plain(got, ts)), (back, x),
+                 (kept, batched.unshuffle_blocks_plain(got, ts, keep))):
+        worst = max(worst, max_abs_diff(a, b))
+        check(torch.equal(a, b), f"shuffle pair vs plain, {what}")
+    check(torch.equal(kept[keep], got[keep]), f"keep_raw rows, {what}")
+    return worst, taken
 
+
+def check_refusals(gen) -> None:
+    """Each launcher, handed a path whose preconditions fail, returns an
+    error that the wrapper raises, and counts no launch."""
+    from tpu_blosc_torch.filters import kernels
+
+    buf = torch.randint(0, 256, (7 * 4096 * 4 + 16,), dtype=torch.uint8,
+                        device=DEVICE, generator=gen)
+    cases = {
+        "source 4 bytes off": (buf[4: 4 + 7 * 16384].view(7, 16384), 4),
+        "ts 3": (buf[: 7 * 12288].view(7, 12288), 3),
+        "bs/ts = 24": (buf[: 7 * 96].view(7, 96), 4),
+        "ts 32": (buf[: 7 * 4096].view(7, 4096), 32),
+    }
+    for what, (x, ts) in cases.items():
+        before = dict(kernels.launches)
+        for fn in (kernels.shuffle_blocks, kernels.unshuffle_blocks):
+            try:
+                fn(x, ts, path="vec16")
+            except RuntimeError as e:
+                check("CUDA error" in str(e), f"{fn.__name__} refusal names the error: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke check failed: {fn.__name__} took "
+                                   f"path vec16 at {what}")
+        check(kernels.launches == before, f"a refused launch was counted ({what})")
+    print(f"kernels: both launchers refuse path vec16 at {', '.join(cases)}")
+
+
+def phase_kernels(gen) -> dict:
+    """Each shuffle kernel against its plain version on both paths;
+    returns the largest error and the times (for the JSON line)."""
+    from tpu_blosc_torch.filters import batched, kernels
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=DEVICE, generator=gen)
+
+    worst = 0
+    for ts in (2, 3, 4, 5, 8, 12, 16, 32, 300):
+        big = MIB // (8 * ts) * (8 * ts)
+        shapes = [(1, 8 * ts), (7, 4096 * ts), (64, big), (5, 24 * ts)]
+        if ts == 4:
+            shapes.append((16384, 4096))  # chunk.MIN_BLOCK
+        seen = set()
+        for nb, bs in shapes:
+            x = rand(nb, bs)
+            keep = torch.rand(nb, device=DEVICE, generator=gen) < 0.5
+            keep[0] = nb > 1  # a raw row and, where nb > 1, a filtered one
+            err, taken = hold_shuffle_pair(x, ts, keep)
+            worst = max(worst, err)
+            want = kernels.shuffle_path(bs, ts, x.data_ptr(), x.data_ptr())
+            check(taken == {f"shuffle_blocks.{want}", f"unshuffle_blocks.{want}"},
+                  f"ts={ts} {(nb, bs)} took {taken}, shuffle_path says {want}")
+            seen.add(want)
+            if want == "vec16":  # the generic path at the same geometry
+                worst = max(worst, hold_shuffle_pair(x, ts, keep, path="generic")[0])
+        # unaligned views of the source, and of the destination
+        for off in (1, 4, 12):
+            nb, bs = 7, 4096 * ts
+            buf = rand(nb * bs + 16)
+            xv = buf[off: off + nb * bs].view(nb, bs)
+            keep = torch.arange(nb, device=DEVICE) % 2 == 0
+            outv = torch.empty_like(buf)[16 - off: 16 - off + nb * bs].view(nb, bs)
+            for out in (None, outv):
+                err, taken = hold_shuffle_pair(xv, ts, keep, out=out)
+                worst = max(worst, err)
+                # the unshuffles read the shuffle's output: unaligned when out is
+                check("shuffle_blocks.generic" in taken and (
+                    out is None or "unshuffle_blocks.generic" in taken),
+                    f"ts={ts} off={off}: unaligned views took {taken}")
+        if ts in kernels.VEC16_TYPE_SIZES:
+            check(seen == {"vec16", "generic"}, f"ts={ts}: paths seen {seen}")
+        also = "; the vec16 shapes on the generic path too" if "vec16" in seen else ""
+        print(f"kernels: ts={ts} equal to the plain versions at {shapes} ({sorted(seen)}"
+              f"{also}), and on views 1, 4 and 12 bytes off alignment")
+
+    # past 2**31 bytes: 64-bit block offsets on both paths
+    x = rand(2049, MIB)
+    keep = torch.arange(2049, device=DEVICE) % 3 == 0
+    for path in (None, "generic"):
+        err, taken = hold_shuffle_pair(x, 4, keep, path=path)
+        worst = max(worst, err)
+        print(f"kernels: (2049, {MIB}) ts=4, {x.numel()} bytes, equal to the plain "
+              f"versions on {sorted(taken)}")
+    del x, keep
+    torch.cuda.empty_cache()
+    check_refusals(gen)
+
+    # the first timed launches after the checks above read up to 18% slow,
+    # the plain version's too: keep the card busy for about 50 ms first
+    x = rand(64, MIB)
+    cuda_ms(lambda: batched.shuffle_blocks_plain(x, 2), iters=300)
     times = {}
-    for ts in (4, 8):
-        bs = MIB // (8 * ts) * (8 * ts)
-        x = torch.from_numpy(rng.integers(0, 256, (64, bs), dtype=np.uint8)).cuda()
+    geometries = [(ts, 64, MIB // (8 * ts) * (8 * ts)) for ts in (2, 3, 4, 8, 16)]
+    for ts, nb, bs in geometries + [(4, 16384, 4096)]:
+        x = rand(nb, bs)
         s = kernels.shuffle_blocks(x, ts)
-        nbytes = x.numel()
-        row = {
-            "shuffle": cuda_ms(lambda: kernels.shuffle_blocks(x, ts)),
-            "shuffle_plain": cuda_ms(lambda: batched.shuffle_blocks_plain(x, ts)),
-            "unshuffle": cuda_ms(lambda: kernels.unshuffle_blocks(s, ts)),
-            "unshuffle_plain": cuda_ms(lambda: batched.unshuffle_blocks_plain(s, ts)),
+        path = kernels.shuffle_path(bs, ts, x.data_ptr(), s.data_ptr())
+        fns = {
+            "shuffle": lambda: kernels.shuffle_blocks(x, ts),
+            "shuffle_plain": lambda: batched.shuffle_blocks_plain(x, ts),
+            "unshuffle": lambda: kernels.unshuffle_blocks(s, ts),
+            "unshuffle_plain": lambda: batched.unshuffle_blocks_plain(s, ts),
         }
-        times[ts] = row
-        print(f"kernel times (64, {bs}) ts={ts}: " + ", ".join(
-            f"{k} {v:.4f} ms = {nbytes / v / 1e6:.1f} GB/s" for k, v in row.items()
-        ) + " (GB/s of input bytes; each byte is read once and written once)")
+        if path == "vec16":
+            fns["shuffle_generic"] = lambda: kernels.shuffle_blocks(x, ts, path="generic")
+            fns["unshuffle_generic"] = lambda: kernels.unshuffle_blocks(s, ts, path="generic")
+        # two turns, the second in reverse order
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                runs[k].append(cuda_ms(fns[k]))
+        row = {"path": path, **{k: statistics.mean(v) for k, v in runs.items()}}
+        times[f"ts{ts} ({nb}, {bs})"] = row
+        print(f"kernel times ({nb}, {bs}) ts={ts}, {path} path, ms as turn 1 / turn 2 "
+              f"(mean of 20 launches each): " + ", ".join(
+                  f"{k} {v[0]:.4f} / {v[1]:.4f} = {x.numel() / statistics.mean(v) / 1e6:.1f} GB/s"
+                  for k, v in runs.items())
+              + " (GB/s of input bytes; each byte is read once and written once)")
     return {"max_abs_err": worst, "times": times}
 
 
@@ -189,14 +296,25 @@ def make_cases(tbt, rng) -> list:
 
 def run_main_path(tbt, cases) -> list:
     """compress_array and decompress_array(strategy="device") once per
-    case, on the card; returns (frame, decoded) per case."""
+    case, on the card; returns (frame, decoded, kernel launches) per
+    case, the launches counted from 0 for each case."""
+    from tpu_blosc_torch.filters import kernels
+
     results = []
     for _, x, opts in cases:
+        kernels.reset_launches()
         frame = tbt.compress_array(x, opts)
         y = tbt.decompress_array(frame, x.dtype, device=DEVICE, strategy="device")
         torch.cuda.synchronize()
-        results.append((frame, y))
+        results.append((frame, y, dict(kernels.launches)))
     return results
+
+
+def check_fast_path(name: str, launches: dict) -> None:
+    """The path launched both shuffle kernels, each on its vec16 path."""
+    for kernel in ("shuffle_blocks", "unshuffle_blocks"):
+        check(launches[kernel] >= 1 and launches[f"{kernel}.vec16"] == launches[kernel],
+              f"{name}: {kernel} launched on the vec16 path ({launches})")
 
 
 def check_and_time_case(tbt, name, x, opts, frame, y) -> int:
@@ -507,21 +625,21 @@ def main() -> int:
 
     check("jax" not in sys.modules, "the port imported jax")
     rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
 
     phase_environment()
-    kern = phase_kernels(rng)
+    kern = phase_kernels(gen)
     match_k = phase_match_kernel(rng)
     probe_k = phase_probe_kernel(rng)
     cases = make_cases(tbt, rng)
 
-    kernels.reset_launches()
     results = run_main_path(tbt, cases)
-    launches = dict(kernels.launches)
-    print(f"main paths A and B, launches: {launches}")
-    check(launches["shuffle_blocks"] >= len(cases), "shuffle kernel launched by compress_array")
-    check(launches["unshuffle_blocks"] >= len(cases), "unshuffle kernel launched by decompress_array")
+    for (name, _, _), (_, _, launches) in zip(cases, results):
+        print(f"main path {name}, launches: {launches}")
+        check_fast_path(name, launches)
 
-    for (name, x, opts), (frame, y) in zip(cases, results):
+    for (name, x, opts), (frame, y, _) in zip(cases, results):
         n_raw = check_and_time_case(tbt, name, x, opts, frame, y)
         if name.startswith("B"):
             check(n_raw >= 1, "B: the random block took the memcpy fallback")
@@ -534,28 +652,40 @@ def main() -> int:
     launches_c = dict(kernels.launches)
     print(f"main path C, launches: {launches_c}")
     check(launches_c["match_nibble"] >= 1, "match kernel launched by compress_array(match)")
+    check_fast_path("C", launches_c)
     match_c = check_and_time_path_c(tbt, x_c, opts_c, frame_c, y_c)
     del x_c, y_c
 
     launches_adv = phase_advisors(tbt, rng, cases)
     print(f"advisors, launches: {launches_adv}")
 
-    t4 = kern["times"][4]
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
+    # the shuffle pair's launches in the main paths A, B and C
+    main_runs = [counts for _, _, counts in results] + [launches_c]
+
+    def shuffle_entry(kernel: str, key: str, replaces: str) -> dict:
+        """The JSON entry of one shuffle kernel; ``key`` names its times."""
+        t4 = kern["times"][f"ts4 (64, {MIB})"]
+        return {
+            "name": f"tpbt_{kernel}", "route": "cuda", "source": src + "shuffle.cu",
+            "replaces": replaces, "launches": sum(c[kernel] for c in main_runs),
+            "launches_by_path": {p: sum(c[f"{kernel}.{p}"] for c in main_runs)
+                                 for p in kernels.SHUFFLE_PATHS},
+            "max_abs_err": kern["max_abs_err"],
+            "ms": t4[key], "plain_ms": t4[f"{key}_plain"],
+            "times": {g: {"path": row["path"], "ms": row[key],
+                          "plain_ms": row[f"{key}_plain"]}
+                      for g, row in kern["times"].items()},
+        }
+
     probe_entry = {"name": "tpbt_probe_tiles", "route": "cuda", "source": src + "probe.cu",
                    "launches": launches_adv["probe_tiles"],
                    "max_abs_err": probe_k["max_abs_err"],
                    "ms": probe_k["ms"], "plain_ms": probe_k["plain_ms"]}
     print(json.dumps({"kernels": [
-        {"name": "tpbt_shuffle_blocks", "route": "cuda", "source": src + "shuffle.cu",
-         "replaces": pk + "293", "launches": launches["shuffle_blocks"],
-         "max_abs_err": kern["max_abs_err"],
-         "ms": t4["shuffle"], "plain_ms": t4["shuffle_plain"]},
-        {"name": "tpbt_unshuffle_blocks", "route": "cuda", "source": src + "shuffle.cu",
-         "replaces": pk + "315", "launches": launches["unshuffle_blocks"],
-         "max_abs_err": kern["max_abs_err"],
-         "ms": t4["unshuffle"], "plain_ms": t4["unshuffle_plain"]},
+        shuffle_entry("shuffle_blocks", "shuffle", pk + "293"),
+        shuffle_entry("unshuffle_blocks", "unshuffle", pk + "315"),
         {"name": "tpbt_match_nibble", "route": "cuda", "source": src + "match.cu",
          "replaces": pk + "463", "launches": launches_c["match_nibble"],
          "max_abs_err": max(match_k["max_abs_err"], match_c["max_abs_err"]),

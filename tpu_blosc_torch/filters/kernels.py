@@ -5,7 +5,8 @@ library with a plain C interface:
 
 - ``shuffle.cu``: ``tpbt_shuffle_blocks`` / ``tpbt_unshuffle_blocks``,
   replacing ``byte_plane_split`` and ``byte_plane_merge``
-  (``tpu_blosc/filters/pallas_kernels.py:292-333``);
+  (``tpu_blosc/filters/pallas_kernels.py:292-333``), each with two paths
+  that ``shuffle_path`` picks between;
 - ``match.cu``: ``tpbt_match_nibble``, replacing
   ``match_select_open_nibble`` (:343-497);
 - ``probe.cu``: ``tpbt_probe_tiles``, replacing ``_probe_runs`` and
@@ -18,8 +19,9 @@ imported.
 
 Each wrapper takes CUDA tensors only, launches on PyTorch's current
 stream, and raises when the launch is refused.  ``launches`` counts the
-launches of each kernel, so a caller can show that a path went through
-it.  The plain PyTorch versions live in ``filters/batched.py``,
+launches of each kernel (and of each shuffle path, as
+``"shuffle_blocks.vec16"`` and the like), so a caller can show that a path
+went through it.  The plain PyTorch versions live in ``filters/batched.py``,
 ``filters/match.py`` and ``filters/probe.py``.
 """
 
@@ -45,9 +47,15 @@ NVCC_FLAGS = [
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 ]
 
+# the shuffle pair's paths, as csrc/shuffle.cu numbers them
+SHUFFLE_PATHS = {"generic": 0, "vec16": 1}
+VEC16_TYPE_SIZES = (2, 4, 8, 16)
+
 # launches of each kernel since the last reset_launches()
 launches = {"shuffle_blocks": 0, "unshuffle_blocks": 0, "match_nibble": 0,
             "probe_tiles": 0}
+launches.update({f"{kernel}.{path}": 0 for kernel in ("shuffle_blocks", "unshuffle_blocks")
+                 for path in SHUFFLE_PATHS})
 
 # the match kernel's halo bounds the run length (csrc/match.cu kHalo + 1)
 MATCH_MAX_T = 9
@@ -95,8 +103,8 @@ def lib() -> ctypes.CDLL:
                 handle = ctypes.CDLL(LIB_PATH)
                 p, i64 = ctypes.c_void_p, ctypes.c_int64
                 for name, argtypes in (
-                    ("tpbt_shuffle_blocks", [p, p, i64, i64, i64, p]),
-                    ("tpbt_unshuffle_blocks", [p, p, p, i64, i64, i64, p]),
+                    ("tpbt_shuffle_blocks", [p, p, i64, i64, i64, ctypes.c_int, p]),
+                    ("tpbt_unshuffle_blocks", [p, p, p, i64, i64, i64, ctypes.c_int, p]),
                     ("tpbt_match_nibble", [p, p, p, i64, i64, i64, i64, p]),
                     ("tpbt_probe_tiles", [p, i64, p, p]),
                 ):
@@ -122,6 +130,17 @@ def check_blocks(blocks: torch.Tensor, type_size: int) -> None:
         raise ValueError(
             f"block size {blocks.shape[1]} is not a multiple of type_size {type_size}"
         )
+
+
+def shuffle_path(bs: int, type_size: int, src_ptr: int, dst_ptr: int) -> str:
+    """The shuffle pair's path for (nb, bs) blocks at these addresses:
+    "vec16" where type_size is 2, 4, 8 or 16, bs/type_size is a multiple
+    of 16, bs < 2**31 and both pointers lie on 16-byte boundaries;
+    "generic" everywhere else.  The launchers check the same conditions
+    and refuse "vec16" where they do not hold."""
+    ok = (type_size in VEC16_TYPE_SIZES and bs // type_size % 16 == 0
+          and bs < 1 << 31 and src_ptr % 16 == 0 and dst_ptr % 16 == 0)
+    return "vec16" if ok else "generic"
 
 
 def check_match_args(segs: torch.Tensor, row_d: torch.Tensor, tail: int,
@@ -178,28 +197,42 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {t.device}")
 
 
+def _pick_path(path: str | None, blocks: torch.Tensor, type_size: int,
+               out: torch.Tensor) -> str:
+    if path is None:
+        return shuffle_path(blocks.shape[1], type_size, blocks.data_ptr(), out.data_ptr())
+    if path not in SHUFFLE_PATHS:
+        raise ValueError(f"unknown shuffle path {path!r}; expected one of {list(SHUFFLE_PATHS)}")
+    return path
+
+
 def shuffle_blocks(blocks: torch.Tensor, type_size: int,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """Byte-shuffle each row of a CUDA (nb, bs) uint8 tensor."""
+                   out: torch.Tensor | None = None,
+                   path: str | None = None) -> torch.Tensor:
+    """Byte-shuffle each row of a CUDA (nb, bs) uint8 tensor, on the path
+    ``shuffle_path`` picks unless ``path`` names one."""
     _require_cuda(blocks)
     check_blocks(blocks, type_size)
     out = _output(blocks, out)
     nb, bs = blocks.shape
     if nb == 0:
         return out
+    path = _pick_path(path, blocks, type_size, out)
     with torch.cuda.device(blocks.device):
         rc = lib().tpbt_shuffle_blocks(
             blocks.data_ptr(), out.data_ptr(), nb, bs, type_size,
-            torch.cuda.current_stream().cuda_stream,
+            SHUFFLE_PATHS[path], torch.cuda.current_stream().cuda_stream,
         )
-    _raise_if_failed(rc, "tpbt_shuffle_blocks")
+    _raise_if_failed(rc, f"tpbt_shuffle_blocks ({path} path)")
     launches["shuffle_blocks"] += 1
+    launches[f"shuffle_blocks.{path}"] += 1
     return out
 
 
 def unshuffle_blocks(blocks: torch.Tensor, type_size: int,
                      keep_raw: torch.Tensor | None = None,
-                     out: torch.Tensor | None = None) -> torch.Tensor:
+                     out: torch.Tensor | None = None,
+                     path: str | None = None) -> torch.Tensor:
     """Inverse of shuffle_blocks; rows where ``keep_raw`` (a (nb,) bool
     tensor) is True are copied verbatim."""
     _require_cuda(blocks)
@@ -214,13 +247,15 @@ def unshuffle_blocks(blocks: torch.Tensor, type_size: int,
         keep_ptr = keep_raw.data_ptr()
     if nb == 0:
         return out
+    path = _pick_path(path, blocks, type_size, out)
     with torch.cuda.device(blocks.device):
         rc = lib().tpbt_unshuffle_blocks(
             blocks.data_ptr(), out.data_ptr(), keep_ptr, nb, bs, type_size,
-            torch.cuda.current_stream().cuda_stream,
+            SHUFFLE_PATHS[path], torch.cuda.current_stream().cuda_stream,
         )
-    _raise_if_failed(rc, "tpbt_unshuffle_blocks")
+    _raise_if_failed(rc, f"tpbt_unshuffle_blocks ({path} path)")
     launches["unshuffle_blocks"] += 1
+    launches[f"unshuffle_blocks.{path}"] += 1
     return out
 
 
