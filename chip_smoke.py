@@ -26,26 +26,45 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
      their offsets, where it is timed);
    - the probe kernel: 1, 2 and 4 tiles and a 64 MiB (32768, 512) tensor,
      timed on the latter;
+   - the bit-shuffle pair: random bytes at type sizes 2, 3, 4, 5, 8, 16
+     and 32, each at (1, 8 ts), (7, 512 * 8 ts) and (64, ~1 MiB), with
+     raw rows; sources 1 and 4 bytes off a 16-byte boundary; each wrapper
+     and each launcher refusing bs % (8 ts) != 0.  Timed at (64, 1 MiB)
+     for type sizes 2, 4 and 8, aligned and on a view 4 bytes off;
 3. main path A: a 64 MiB float32 ramp, LZ4 level 5, byte shuffle;
 4. main path B: 64 MB of float64 signal, ZSTD level 5, byte shuffle,
    with one 1 MiB block of random bytes (memcpy fallback) and a ragged
    tail;
-5. main path C: 256 MiB of tiled float32 with 1% noise (bench.py's match
+5. main path D: 64 MiB of float32 linspace(0, 1), LZ4 level 5, bit
+   shuffle;
+6. main path E: 32,000,005 int16 samples of a 12-bit ADC signal
+   (BASELINE.json config 4), LZ4 level 5, bit shuffle, with one 1 MiB
+   block of random bytes and a 36,874-byte tail ending in a partial group
+   of 5 elements;
+7. main path C: 256 MiB of tiled float32 with 1% noise (bench.py's match
    data), LZ4 level 5, 1 MiB blocks, compress_array(strategy="match");
-6. suggest_codec and suggest_options on A's, B's and random bytes;
-7. prints the kernels' JSON line and, last, the ok line.
+8. main path F: a checkpoint of GPT-2 medium's 292 parameter tensors
+   (354.8 M bfloat16 values, N(0, 0.02) from the seed, made on the card)
+   through save_pytree (LZ4 level 5, byte shuffle), load_pytree onto the
+   card (the transfer and the device strategy) and load_leaf, in a
+   temporary directory;
+9. suggest_codec and suggest_options on A's, B's and random bytes;
+10. prints the kernels' JSON line and, last, the ok line.
 
-Paths A and B run compress_array on the CUDA tensor and
+Paths A, B, D and E run compress_array on the CUDA tensor and
 decompress_array(strategy="device"), and must give the frame of the host
 path (compress_with_options on the tensor's bytes) and the tensor back
 exactly.  Path C's frame must differ from the transfer frame (the
 emitter engaged), decode to the tensor on the host and through
 decompress_array(strategy="device"), and equal, on a 16 MiB slice, the
-frame the CPU route (the kernels' plain versions) writes.  Every kernel
-must be launched by the path it serves, and A, B and C must take the
-shuffle pair's vec16 path: the launch counts are reset just before each
-path and read just after.  Any failure raises, so the script
-exits non-zero without the ok line.  It imports nothing of JAX and exits
+frame the CPU route (the kernels' plain versions) writes; so must E's
+match frame on a 16 MiB slice.  F's file must equal the one save_pytree
+writes from the same tree on the CPU, and every load must give every
+leaf back exactly.  Every kernel must be launched by the path it serves
+(A, B and C the shuffle pair on its vec16 path, D and E the bit-shuffle
+pair, F the shuffle pair): the launch counts are reset just before each
+path and read just after.  Any failure raises, so the script exits
+non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
 """
 
@@ -53,9 +72,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -357,18 +378,20 @@ def check_and_time_case(tbt, name, x, opts, frame, y) -> int:
     flat = dev.tensor_bytes(x)
     blocks = flat[: nb_full * bs].view(nb_full, bs)
     staged = torch.empty_like(flat)
-    t_shuf = host_s(lambda: tbt.filters.shuffle_blocks(
-        blocks, opts.type_size, out=staged[: nb_full * bs].view(nb_full, bs)))
+    bit = opts.shuffle == tbt.Shuffle.BITSHUFFLE
+    kind = "bit-shuffle" if bit else "shuffle"
+    t_shuf = host_s(lambda: tbt.filters.filter_blocks(
+        blocks, opts.type_size, opts.shuffle, out=staged[: nb_full * bs].view(nb_full, bs)))
     t_d2h = host_s(lambda: staged.cpu())
-    filtered = dev._device_filter_fetch(flat, opts.type_size, nb_full, bs)
-    t_codec = host_s(lambda: dev._compress_array_stage2(filtered, opts, bs))
+    filtered = dev._device_filter_fetch(flat, opts, nb_full, bs)
+    t_codec = host_s(lambda: dev._compress_array_stage2((filtered, opts, bs)))
     native = chunk.native_pipeline_codec(header.codec, 1)
     t_decode = host_s(lambda: dev._decode_filtered_blocks(frame, header, n, native[0]))
     host_stream, _ = dev._decode_filtered_blocks(frame, header, n, native[0])
     t_h2d = host_s(lambda: host_stream.to(DEVICE))
     on_dev = host_stream.to(DEVICE)
-    t_unshuf = host_s(lambda: tbt.filters.unshuffle_blocks(
-        on_dev[: nb_full * bs].view(nb_full, bs), opts.type_size))
+    t_unshuf = host_s(lambda: tbt.filters.unfilter_blocks(
+        on_dev[: nb_full * bs].view(nb_full, bs), opts.type_size, opts.shuffle))
 
     gb = n / 1e9
     print(f"{name}: {n} bytes, {len(entries)} blocks of {bs} ({n_raw} stored raw, "
@@ -380,11 +403,11 @@ def check_and_time_case(tbt, name, x, opts, frame, y) -> int:
           f"({t_hd * 1e3:.3f} ms); x.cpu() then host compress {gb / t_cc:.3f} GB/s "
           f"({t_cc * 1e3:.3f} ms); decompress_array(transfer) {gb / t_dt:.3f} GB/s "
           f"({t_dt * 1e3:.3f} ms)")
-    print(f"{name} stages (ms, medians of 5): compress = shuffle kernel "
+    print(f"{name} stages (ms, medians of 5): compress = {kind} kernel "
           f"{t_shuf * 1e3:.3f} + device-to-host copy {t_d2h * 1e3:.3f} + host codec "
           f"and frame {t_codec * 1e3:.3f}; decompress = host codec "
           f"{t_decode * 1e3:.3f} + host-to-device copy {t_h2d * 1e3:.3f} + "
-          f"unshuffle kernel {t_unshuf * 1e3:.3f}")
+          f"{kind.replace('shuffle', 'unshuffle')} kernel {t_unshuf * 1e3:.3f}")
     return n_raw
 
 
@@ -614,6 +637,243 @@ def phase_advisors(tbt, rng, cases) -> dict:
     return launches
 
 
+def hold_bit_pair(x, ts, keep, out=None) -> int:
+    """Bit-shuffle ``x``, bit-unshuffle the result plainly and with the
+    ``keep`` rows raw, and hold all three to the plain versions; returns
+    the largest error."""
+    from tpu_blosc_torch.filters import batched, kernels
+
+    got = kernels.bit_shuffle_blocks(x, ts, out=out)
+    back = kernels.bit_unshuffle_blocks(got, ts)
+    kept = kernels.bit_unshuffle_blocks(got, ts, keep_raw=keep)
+    torch.cuda.synchronize()
+    what = f"ts={ts} shape={tuple(x.shape)} at offset {x.data_ptr() % 16}"
+    worst = 0
+    for a, b in ((got, batched.bit_shuffle_blocks_plain(x, ts)),
+                 (back, batched.bit_unshuffle_blocks_plain(got, ts)), (back, x),
+                 (kept, batched.bit_unshuffle_blocks_plain(got, ts, keep))):
+        worst = max(worst, max_abs_diff(a, b))
+        check(torch.equal(a, b), f"bit-shuffle pair vs plain, {what}")
+    check(torch.equal(kept[keep], got[keep]), f"bit keep_raw rows, {what}")
+    return worst
+
+
+def check_bit_refusals(gen) -> None:
+    """bs % (8 ts) != 0: each wrapper raises before launching, and each
+    launcher, called directly, refuses with CUDA error 1
+    (cudaErrorInvalidValue) and counts no launch."""
+    from tpu_blosc_torch.filters import kernels
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for ts, bs in ((4, 8 * 4 * 10 + 4), (2, 8 * 2 * 3 + 8), (3, 9)):
+        x = torch.randint(0, 256, (7, bs), dtype=torch.uint8, device=DEVICE, generator=gen)
+        out = torch.empty_like(x)
+        before = dict(kernels.launches)
+        for fn in (kernels.bit_shuffle_blocks, kernels.bit_unshuffle_blocks):
+            try:
+                fn(x, ts)
+            except ValueError as e:
+                check("8*type_size" in str(e), f"{fn.__name__} refusal names the rule: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke check failed: {fn.__name__} took bs={bs} ts={ts}")
+        lib = kernels.lib()
+        rcs = (lib.tpbt_bitshuffle_blocks(x.data_ptr(), out.data_ptr(), 7, bs, ts, stream),
+               lib.tpbt_bitunshuffle_blocks(x.data_ptr(), out.data_ptr(), None, 7, bs, ts,
+                                            stream))
+        check(rcs == (1, 1), f"the launchers refuse bs={bs} ts={ts}: {rcs}")
+        check(kernels.launches == before, f"a refused bit-shuffle launch was counted (ts={ts})")
+    print("kernels: both bit-shuffle wrappers and launchers refuse bs % (8 ts) != 0")
+
+
+def phase_bit_kernels(gen) -> dict:
+    """The bit-shuffle pair against its plain versions; returns the
+    largest error and the times at (64, 1 MiB)."""
+    from tpu_blosc_torch.filters import batched, kernels
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=DEVICE, generator=gen)
+
+    worst = 0
+    for ts in (2, 3, 4, 5, 8, 16, 32):
+        shapes = [(1, 8 * ts), (7, 512 * 8 * ts), (64, MIB // (8 * ts) * (8 * ts))]
+        for nb, bs in shapes:
+            keep = torch.rand(nb, device=DEVICE, generator=gen) < 0.5
+            keep[0] = nb > 1
+            worst = max(worst, hold_bit_pair(rand(nb, bs), ts, keep))
+        for off in (1, 4):  # views of the source, and of the destination
+            nb, bs = 7, 512 * 8 * ts
+            buf = rand(nb * bs + 16)
+            xv = buf[off: off + nb * bs].view(nb, bs)
+            outv = torch.empty_like(buf)[16 - off: 16 - off + nb * bs].view(nb, bs)
+            keep = torch.arange(nb, device=DEVICE) % 2 == 0
+            for out in (None, outv):
+                worst = max(worst, hold_bit_pair(xv, ts, keep, out=out))
+        print(f"kernels: bit-shuffle ts={ts} equal to the plain versions at {shapes}, "
+              f"and on views 1 and 4 bytes off alignment")
+    check_bit_refusals(gen)
+
+    times = {}
+    for ts in (2, 4, 8):
+        nb, bs = 64, MIB
+        x = rand(nb, bs)
+        s = kernels.bit_shuffle_blocks(x, ts)
+        buf = rand(nb * bs + 16)
+        xo = buf[4: 4 + nb * bs].view(nb, bs)  # the launcher's generic path
+        so = torch.empty_like(buf)[4: 4 + nb * bs].view(nb, bs)
+        kernels.bit_shuffle_blocks(xo, ts, out=so)
+        fns = {
+            "shuffle": lambda: kernels.bit_shuffle_blocks(x, ts),
+            "shuffle_plain": lambda: batched.bit_shuffle_blocks_plain(x, ts),
+            "shuffle_offset4": lambda: kernels.bit_shuffle_blocks(xo, ts),
+            "unshuffle": lambda: kernels.bit_unshuffle_blocks(s, ts),
+            "unshuffle_plain": lambda: batched.bit_unshuffle_blocks_plain(s, ts),
+            "unshuffle_offset4": lambda: kernels.bit_unshuffle_blocks(so, ts),
+        }
+        runs = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):  # two turns, the second reversed
+            for k in order:
+                runs[k].append(cuda_ms(fns[k], iters=10 if "plain" in k else 20))
+        times[f"ts{ts} ({nb}, {bs})"] = {k: statistics.mean(v) for k, v in runs.items()}
+        print(f"bit-shuffle kernel times ({nb}, {bs}) ts={ts}, ms as turn 1 / turn 2: " + ", ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f} = {x.numel() / statistics.mean(v) / 1e6:.1f} GB/s"
+            for k, v in runs.items()) + " (GB/s of input bytes; offset4: views 4 bytes off "
+            "a 16-byte boundary, which take the generic path)")
+        del x, s, buf, xo, so
+    return {"max_abs_err": worst, "times": times}
+
+
+def make_bit_cases(tbt, rng) -> list:
+    """(name, tensor on DEVICE, options) of the two bit-shuffle cells."""
+    # D: bench.py:157-158's bitshuffle data, scaled as A scales the README shape
+    d = torch.linspace(0, 1, 16 * MIB, dtype=torch.float32, device=DEVICE)
+    opts_d = tbt.Options(codec=tbt.Codec.LZ4, level=5,
+                         shuffle=tbt.Shuffle.BITSHUFFLE, type_size=4)
+    # E: BASELINE.json config 4, int16 sensor data: a 12-bit ADC reading a
+    # slow sine with a little noise, one block of random bytes, and a tail
+    # of 2304 groups of 8 samples and 5 samples more
+    n_e = 32_000_005
+    t = np.arange(n_e) / 20_000.0
+    adc = 2048 + 1500 * np.sin(2 * np.pi * 3.0 * t) + rng.normal(scale=4.0, size=n_e)
+    e = np.clip(np.rint(adc), 0, 4095).astype(np.int16)
+    e.view(np.uint8)[20 * MIB : 21 * MIB] = rng.integers(0, 256, MIB, dtype=np.uint8)
+    opts_e = tbt.Options(codec=tbt.Codec.LZ4, level=5,
+                         shuffle=tbt.Shuffle.BITSHUFFLE, type_size=2)
+    return [("D f32 linspace LZ4 bitshuffle", d, opts_d),
+            ("E i16 ADC LZ4 bitshuffle", torch.from_numpy(e).to(DEVICE), opts_e)]
+
+
+def check_bit_path(name: str, launches: dict) -> None:
+    """The path launched both bit-shuffle kernels."""
+    for kernel in ("bit_shuffle_blocks", "bit_unshuffle_blocks"):
+        check(launches[kernel] >= 1, f"{name}: {kernel} launched ({launches})")
+
+
+GPT2_MEDIUM = {"n_layer": 24, "n_embd": 1024, "vocab_size": 50257, "n_positions": 1024}
+# what that config holds: 12 tensors a layer and 4 more, and their values
+GPT2_TENSORS, GPT2_VALUES = 292, 354_823_168
+
+
+def gpt2_medium_state(seed: int) -> dict:
+    """The parameter shapes of the public gpt2-medium config (292 tensors,
+    354,823,168 values), N(0, 0.02) in bfloat16, made on the card from
+    ``seed``, in the original GPT-2 names."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    c = GPT2_MEDIUM
+    e = c["n_embd"]
+
+    def w(*shape):
+        x = torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.float32)
+        return (x * 0.02).to(torch.bfloat16)
+
+    def dense(n_in, n_out):
+        return {"w": w(n_in, n_out), "b": w(n_out)}
+
+    def layer():
+        return {"ln_1": {"g": w(e), "b": w(e)},
+                "attn": {"c_attn": dense(e, 3 * e), "c_proj": dense(e, e)},
+                "ln_2": {"g": w(e), "b": w(e)},
+                "mlp": {"c_fc": dense(e, 4 * e), "c_proj": dense(4 * e, e)}}
+
+    params = {"wte": w(c["vocab_size"], e), "wpe": w(c["n_positions"], e),
+              "h": [layer() for _ in range(c["n_layer"])],
+              "ln_f": {"g": w(e), "b": w(e)}}
+    rng = torch.tensor([seed, seed + 1], dtype=torch.int64, device=DEVICE)
+    return {"params": params, "step": 1000, "rng": rng}
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def run_path_f(tbt, state, opts, workdir):
+    """The checkpoint path: save_pytree, the two loads onto the card and
+    load_leaf; returns (file path, loaded trees, leaf, wall seconds)."""
+    path = os.path.join(workdir, "gpt2-medium.tpbs")
+    t0 = time.perf_counter()
+    tbt.save_pytree(path, state, opts)
+    t_save = time.perf_counter() - t0
+    loads, t_loads = {}, {}
+    for strategy in ("transfer", "device"):
+        t0 = time.perf_counter()
+        loads[strategy] = tbt.load_pytree(path, device=True, strategy=strategy)
+        torch.cuda.synchronize()
+        t_loads[strategy] = time.perf_counter() - t0
+    leaf = tbt.load_leaf(path, "params/h/12/mlp/c_fc/w", device=True)
+    torch.cuda.synchronize()
+    return path, loads, leaf, t_save, t_loads
+
+
+def check_path_f(tbt, state, opts, path, loads, leaf, t_save, t_loads, workdir) -> None:
+    """F's file against the CPU route's, and every load against the state."""
+    tensors = [x for x in tree_leaves(state) if isinstance(x, torch.Tensor)]
+    n_values = sum(x.numel() for x in tensors if x.dtype == torch.bfloat16)
+    check(len(tensors) - 1 == GPT2_TENSORS and n_values == GPT2_VALUES,
+          f"F: GPT-2 medium has {GPT2_TENSORS} parameter tensors of {GPT2_VALUES} values "
+          f"({len(tensors) - 1}, {n_values}; the other tensor is rng)")
+    nbytes = sum(x.numel() * x.element_size() for x in tensors)
+    size = os.path.getsize(path)
+    cpu_state = tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, state)
+    cpu_path = os.path.join(workdir, "gpt2-medium-cpu.tpbs")
+    t0 = time.perf_counter()
+    tbt.save_pytree(cpu_path, cpu_state, opts)
+    t_cpu = time.perf_counter() - t0
+    with open(path, "rb") as a, open(cpu_path, "rb") as b:
+        same = a.read() == b.read()
+    check(same, "F: the file equals the one save_pytree writes from the tree on the CPU")
+    os.remove(cpu_path)
+    for strategy, loaded in loads.items():
+        got = tree_leaves(loaded)
+        check(len(got) == len(tree_leaves(state)), f"F: {strategy} load has every leaf")
+        for x, y in zip(tree_leaves(state), got):
+            if isinstance(x, torch.Tensor):
+                check(y.device == x.device and y.dtype == x.dtype and torch.equal(x, y),
+                      f"F: {strategy} load gives the leaf back exactly")
+            else:
+                check(x == y, f"F: {strategy} load gives {x!r} back")
+    check(torch.equal(leaf, state["params"]["h"][12]["mlp"]["c_fc"]["w"]),
+          "F: load_leaf of params/h/12/mlp/c_fc/w")
+    gb = nbytes / 1e9
+    print(f"F GPT-2 medium checkpoint: {len(tensors) - 1} parameter tensors, {n_values} "
+          f"bf16 values, {nbytes} bytes, file {size} bytes, ratio {nbytes / size:.3f}; "
+          f"save_pytree {t_save:.3f} s = {gb / t_save:.3f} GB/s; load_pytree(device=True) "
+          f"transfer {t_loads['transfer']:.3f} s = {gb / t_loads['transfer']:.3f} GB/s, "
+          f"device {t_loads['device']:.3f} s = {gb / t_loads['device']:.3f} GB/s; "
+          f"save_pytree of the tree moved to the CPU {t_cpu:.3f} s (moves not timed)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; it runs only on a GPU",
@@ -632,17 +892,27 @@ def main() -> int:
     kern = phase_kernels(gen)
     match_k = phase_match_kernel(rng)
     probe_k = phase_probe_kernel(rng)
-    cases = make_cases(tbt, rng)
+    bit_k = phase_bit_kernels(gen)
+    cases = make_cases(tbt, rng) + make_bit_cases(tbt, rng)  # A, B, D, E
 
     results = run_main_path(tbt, cases)
-    for (name, _, _), (_, _, launches) in zip(cases, results):
+    for (name, _, opts), (_, _, launches) in zip(cases, results):
         print(f"main path {name}, launches: {launches}")
-        check_fast_path(name, launches)
+        if opts.shuffle == tbt.Shuffle.BITSHUFFLE:
+            check_bit_path(name, launches)
+        else:
+            check_fast_path(name, launches)
 
     for (name, x, opts), (frame, y, _) in zip(cases, results):
         n_raw = check_and_time_case(tbt, name, x, opts, frame, y)
-        if name.startswith("B"):
-            check(n_raw >= 1, "B: the random block took the memcpy fallback")
+        if name[0] in "BE":
+            check(n_raw >= 1, f"{name[0]}: the random block took the memcpy fallback")
+    _, x_e, opts_e = cases[3]
+    part = x_e[: 8 * MIB]
+    check(tbt.compress_array(part, opts_e, strategy="match")
+          == tbt.compress_array(part.cpu(), opts_e, strategy="match"),
+          "E: the CUDA route's match frame equals the CPU route's on 16 MiB")
+    print("E: compress_array(strategy='match') of a 16 MiB slice equals the CPU route's")
 
     x_c = torch.from_numpy(match_data()).to(DEVICE)
     opts_c = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE,
@@ -656,13 +926,27 @@ def main() -> int:
     match_c = check_and_time_path_c(tbt, x_c, opts_c, frame_c, y_c)
     del x_c, y_c
 
-    launches_adv = phase_advisors(tbt, rng, cases)
+    state = gpt2_medium_state(SEED)
+    opts_f = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        kernels.reset_launches()
+        f_run = run_path_f(tbt, state, opts_f, workdir)
+        launches_f = dict(kernels.launches)
+        print(f"main path F, launches: {launches_f}")
+        for kernel in ("shuffle_blocks", "unshuffle_blocks"):
+            check(launches_f[kernel] >= 1, f"F: {kernel} launched ({launches_f})")
+        check_path_f(tbt, state, opts_f, *f_run, workdir)
+    finally:
+        shutil.rmtree(workdir)
+
+    launches_adv = phase_advisors(tbt, rng, cases[:2])
     print(f"advisors, launches: {launches_adv}")
 
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
-    # the shuffle pair's launches in the main paths A, B and C
-    main_runs = [counts for _, _, counts in results] + [launches_c]
+    # the kernels' launches in the main paths A, B, D, E, C and F
+    main_runs = [counts for _, _, counts in results] + [launches_c, launches_f]
 
     def shuffle_entry(kernel: str, key: str, replaces: str) -> dict:
         """The JSON entry of one shuffle kernel; ``key`` names its times."""
@@ -679,6 +963,21 @@ def main() -> int:
                       for g, row in kern["times"].items()},
         }
 
+    def bit_entry(name: str, kernel: str, key: str, line: int) -> dict:
+        """The JSON entry of one bit-shuffle kernel (``kernel`` its launch
+        count's name); ``key`` names its times."""
+        t4 = bit_k["times"][f"ts4 (64, {MIB})"]
+        return {
+            "name": name, "route": "cuda", "source": src + "bitshuffle.cu",
+            "replaces": f"tpu_blosc/filters/batched.py:{line}",
+            "launches": sum(c[kernel] for c in main_runs),
+            "max_abs_err": bit_k["max_abs_err"],
+            "ms": t4[key], "plain_ms": t4[f"{key}_plain"],
+            "times": {g: {"ms": row[key], "plain_ms": row[f"{key}_plain"],
+                          "offset4_ms": row[f"{key}_offset4"]}
+                      for g, row in bit_k["times"].items()},
+        }
+
     probe_entry = {"name": "tpbt_probe_tiles", "route": "cuda", "source": src + "probe.cu",
                    "launches": launches_adv["probe_tiles"],
                    "max_abs_err": probe_k["max_abs_err"],
@@ -692,6 +991,8 @@ def main() -> int:
          "ms": match_c["ms"], "plain_ms": match_c["plain_ms"]},
         {**probe_entry, "replaces": pk + "125"},
         {**probe_entry, "replaces": pk + "126"},
+        bit_entry("tpbt_bitshuffle_blocks", "bit_shuffle_blocks", "shuffle", 65),
+        bit_entry("tpbt_bitunshuffle_blocks", "bit_unshuffle_blocks", "unshuffle", 74),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,369 @@
+"""Compressed checkpoints of nested tensor structures (single process).
+
+Counterpart: ``tpu_blosc/checkpoint.py:1-395``; the files are byte for
+byte the JAX package's for the same tree, and each package loads the
+other's.  A checkpoint is a stream (stream.py): record 0 is a JSON
+manifest of the structure, with each array leaf's NumPy dtype name
+(``"float32"``, ``"bfloat16"``) and shape, and every array leaf with
+elements is one record, compressed with ``type_size`` = its element
+size.  A leaf with no elements is an ``array0`` node and has no record.
+
+The structure is nested dicts (string keys), lists and tuples; leaves are
+tensors, NumPy arrays (NumPy scalars become 0-d leaves) and JSON values
+(int, float, str, bool, None).
+
+    state = {"params": {"w": w, "b": b}, "step": 1000}
+    checkpoint.save_pytree(path, state)
+    cpu = checkpoint.load_pytree(path)               # CPU tensors
+    gpu = checkpoint.load_pytree(path, device=True)  # on the current GPU
+
+CUDA tensors are "device" records: a run of two or more goes through a
+1-deep pipeline, leaf k+1's filter on the device and copy to the host
+(_compress_array_stage1) on a worker thread while this thread runs leaf
+k's host codec and file write (_compress_array_stage2), the two halves of
+compress_array, so the frames are compress_array's by construction.  CPU
+tensors and NumPy arrays are "host" records, compressed in batches of up
+to _BATCH_WINDOW_BYTES.  A load onto a device decodes leaf k+1 on a
+worker thread while this thread copies leaf k to the device.
+
+The multi-process sharded checkpoints of the JAX package
+(tpu_blosc/checkpoint.py:400-670) are not ported.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from . import dtypes
+from .api import compress_batch_with_options
+from .device import (
+    _compress_array_stage1,
+    _compress_array_stage2,
+    checked_decode_size,
+    host_decode,
+    tensor_bytes,
+)
+from .errors import InvalidDataError
+from .filters import load_target
+from .options import Options
+from .stream import DICT_MAGIC, StreamReader, StreamWriter, _iter_prefetch
+
+_MANIFEST_VERSION = 1
+
+# Host leaves compress in batches of about this many bytes: one native
+# call per element size in a window, peak memory about a window
+_BATCH_WINDOW_BYTES = 64 * 1024 * 1024
+
+
+def _leaf_dtype(obj) -> tuple[torch.dtype, str]:
+    """(torch dtype, manifest name) of an array leaf."""
+    dt = obj.dtype if isinstance(obj, torch.Tensor) else dtypes.from_numpy(obj.dtype)
+    return dt, dtypes.manifest_name(dt)
+
+
+def _encode(obj, leaves: list):
+    if isinstance(obj, np.generic):  # a NumPy scalar: a 0-d leaf
+        obj = np.asarray(obj)
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        _, name = _leaf_dtype(obj)
+        shape = list(obj.shape)
+        numel = obj.numel() if isinstance(obj, torch.Tensor) else obj.size
+        if numel == 0:  # no record, only the metadata
+            return {"t": "array0", "dtype": name, "shape": shape}
+        leaves.append(obj)
+        return {"t": "array", "i": len(leaves) - 1, "dtype": name, "shape": shape}
+    if isinstance(obj, dict):
+        items = []
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"checkpoint dict keys must be strings, got {type(k)!r}")
+            items.append([k, _encode(v, leaves)])
+        return {"t": "dict", "items": items}
+    if isinstance(obj, (list, tuple)):
+        return {
+            "t": "list" if isinstance(obj, list) else "tuple",
+            "items": [_encode(v, leaves) for v in obj],
+        }
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return {"t": "raw", "v": obj}
+    raise TypeError(f"unsupported checkpoint leaf type: {type(obj)!r}")
+
+
+def _manifest_dtype(name) -> torch.dtype:
+    dt = dtypes.from_string(name) if isinstance(name, str) else None
+    if dt is None:
+        raise InvalidDataError(f"blosc: invalid compressed data: manifest dtype {name!r}")
+    return dt
+
+
+def _decode(node, fetch, empty_device=None):
+    t = node["t"]
+    if t == "array":
+        return fetch(node["i"], _manifest_dtype(node["dtype"]), tuple(node["shape"]))
+    if t == "array0":
+        return torch.empty(tuple(node["shape"]), dtype=_manifest_dtype(node["dtype"]),
+                           device=empty_device)
+    if t == "dict":
+        return {k: _decode(v, fetch, empty_device) for k, v in node["items"]}
+    if t == "list":
+        return [_decode(v, fetch, empty_device) for v in node["items"]]
+    if t == "tuple":
+        return tuple(_decode(v, fetch, empty_device) for v in node["items"])
+    if t == "raw":
+        return node["v"]
+    raise InvalidDataError(f"blosc: invalid compressed data: manifest node {t!r}")
+
+
+def _on_cuda(leaf) -> bool:
+    """A leaf that is written as a "device" record."""
+    return isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda"
+
+
+def _leaf_opts(base: Options, itemsize: int) -> Options:
+    return Options(codec=base.codec, level=base.level, shuffle=base.shuffle,
+                   type_size=itemsize, block_size=base.block_size,
+                   num_threads=base.num_threads)
+
+
+def _host_bytes(leaf) -> tuple[np.ndarray, int]:
+    """(flat uint8 array of a host leaf's bytes in C order, element size)."""
+    if isinstance(leaf, torch.Tensor):
+        return tensor_bytes(leaf).numpy(), leaf.element_size()
+    arr = np.ascontiguousarray(leaf)
+    return arr.reshape(-1).view(np.uint8), arr.dtype.itemsize
+
+
+def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
+                        strategy: str = "transfer") -> None:
+    """Write ("host", leaf) and ("device", CUDA tensor) records, in order
+    (≙ tpu_blosc/checkpoint.py:114-196)."""
+    base = opts if opts is not None else Options()
+    pending: list[tuple[np.ndarray, int]] = []
+    pending_bytes = 0
+
+    def flush():
+        nonlocal pending, pending_bytes
+        by_ts: dict[int, list[int]] = {}
+        for k, (_, itemsize) in enumerate(pending):
+            by_ts.setdefault(itemsize, []).append(k)
+        frames: dict[int, bytes] = {}
+        for itemsize, idxs in by_ts.items():
+            batch = compress_batch_with_options([pending[k][0] for k in idxs],
+                                                _leaf_opts(base, itemsize))
+            frames.update(zip(idxs, batch))
+        for k in range(len(pending)):
+            w.write_frame(frames[k])
+        pending, pending_bytes = [], 0
+
+    def write_device_run(run: list[torch.Tensor]):
+        def stage1(t: int):
+            return _compress_array_stage1(run[t], _leaf_opts(base, run[t].element_size()),
+                                          strategy)
+
+        if len(run) == 1:
+            w.write_frame(_compress_array_stage2(stage1(0)))
+            return
+        for staged in _iter_prefetch(stage1, len(run), prefetch=1):
+            w.write_frame(_compress_array_stage2(staged))
+
+    records = list(records)
+    i, n_rec = 0, len(records)
+    while i < n_rec:
+        kind, data = records[i]
+        if kind == "host":
+            buf = _host_bytes(data)
+            pending.append(buf)
+            pending_bytes += buf[0].nbytes
+            if pending_bytes >= _BATCH_WINDOW_BYTES:
+                flush()
+            i += 1
+            continue
+        flush()  # keep the record order
+        j = i
+        while j < n_rec and records[j][0] == "device":
+            j += 1
+        write_device_run([d for _, d in records[i:j]])
+        i = j
+    flush()
+
+
+def _collect_leaf_specs(tree, n_leaves: int):
+    """Leaf index -> (dtype, shape) from the manifest, or None unless the
+    leaf indices are exactly 0..n_leaves-1 (a forged or damaged manifest
+    then takes the per-leaf path, which raises as it would)."""
+    specs: dict[int, tuple] = {}
+
+    def walk(node):
+        t = node.get("t") if isinstance(node, dict) else None
+        if t == "array":
+            i = node["i"]
+            if not isinstance(i, int) or i in specs:
+                raise ValueError
+            specs[i] = (_manifest_dtype(node["dtype"]), tuple(node["shape"]))
+        elif t == "dict":
+            for _, v in node["items"]:
+                walk(v)
+        elif t in ("list", "tuple"):
+            for v in node["items"]:
+                walk(v)
+
+    try:
+        walk(tree)
+    except Exception:
+        return None
+    return specs if sorted(specs) == list(range(n_leaves)) else None
+
+
+def save_pytree(path, tree, opts: Options | None = None, checksum: bool = False,
+                strategy: str = "transfer") -> None:
+    """Write a nested tensor structure as a compressed checkpoint file.
+
+    ``checksum=True`` adds a crc32 to every record, so a load detects a
+    flipped bit instead of returning plausible garbage.  ``strategy``
+    applies to CUDA leaves (compress_array's: "transfer", "match" or
+    "auto").
+    """
+    leaves: list = []
+    skeleton = _encode(tree, leaves)
+    manifest = json.dumps(
+        {"version": _MANIFEST_VERSION, "tree": skeleton, "leaves": len(leaves)}
+    ).encode()
+    with StreamWriter(path, opts, checksum=checksum) as w:
+        w.write(manifest, Options(type_size=1))
+        _write_leaf_records(
+            w,
+            (("device" if _on_cuda(lf) else "host", lf) for lf in leaves),
+            opts,
+            strategy=strategy,
+        )
+
+
+def _read_manifest(r: StreamReader) -> dict:
+    if len(r) == 0:
+        raise InvalidDataError("blosc: invalid compressed data: empty checkpoint")
+    meta = json.loads(r.read(0))
+    if meta.get("version") != _MANIFEST_VERSION:
+        raise InvalidDataError(
+            f"blosc: invalid version: checkpoint manifest {meta.get('version')}"
+        )
+    return meta
+
+
+def _read_leaf(r: StreamReader, i: int, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
+    """Record ``i`` as a CPU tensor of ``dtype`` and ``shape``."""
+    buf = bytearray(r.read(i))
+    return torch.frombuffer(buf, dtype=torch.uint8).view(dtype).reshape(shape)
+
+
+def load_pytree(path, device=False, strategy: str = "transfer"):
+    """Read a checkpoint back: CPU tensors, or with ``device=True`` (the
+    current CUDA device) or a device, tensors there.
+
+    ``strategy`` goes to decompress_array for each leaf of a device load;
+    "transfer" and "auto" decode on the host with a prefetch pipeline and
+    copy each leaf once.
+    """
+    target = load_target(device, "load_pytree")
+    with StreamReader(path) as r:
+        meta = _read_manifest(r)
+        if meta["leaves"] != len(r) - 1:
+            raise InvalidDataError(
+                "blosc: invalid compressed data: checkpoint leaf count mismatch"
+            )
+        specs = _collect_leaf_specs(meta["tree"], meta["leaves"])
+        ready: dict[int, torch.Tensor] = {}
+        dev_gen = None
+        if target is not None and strategy in ("transfer", "auto") and specs is not None:
+            def stage_host(i: int):
+                dtype, shape = specs[i]
+                frame = r.read_frame(i + 1)
+                if frame[:4] == DICT_MAGIC:
+                    host = torch.frombuffer(bytearray(r._decode_dict_record(frame)),
+                                            dtype=torch.uint8)
+                else:
+                    host = host_decode(frame, checked_decode_size(frame, dtype))
+                return i, host.view(dtype).reshape(shape)
+
+            dev_gen = _iter_prefetch(stage_host, meta["leaves"], prefetch=2)
+        elif target is None and specs is not None:
+            # decode straight into tensors allocated from the manifest, for
+            # the leaves whose size agrees with their record's own header
+            # (a forged manifest must not drive the allocations)
+            for i, (dtype, shape) in specs.items():
+                nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+                try:
+                    if r.peek_size(i + 1) == nbytes:
+                        ready[i] = torch.empty(shape, dtype=dtype)
+                except (InvalidDataError, MemoryError, RuntimeError):
+                    continue  # the per-leaf path raises the typed error
+            order = sorted(ready)
+            counts = r.read_many_into(
+                [i + 1 for i in order], [tensor_bytes(ready[i]).numpy() for i in order]
+            )
+            for i, c in zip(order, counts):
+                if c != ready[i].numel() * ready[i].element_size():
+                    del ready[i]
+
+        produced: dict[int, torch.Tensor] = {}
+
+        def fetch(i: int, dtype: torch.dtype, shape: tuple):
+            if dev_gen is not None:
+                # leaves arrive in index order; a manifest may walk them in
+                # another, so buffer until leaf i is there
+                while i not in produced:
+                    k, host = next(dev_gen)
+                    produced[k] = host
+                return produced.pop(i).to(target)
+            if target is not None:
+                return r.read_array(i + 1, dtype, shape=shape, device=target,
+                                    strategy=strategy)
+            got = ready.get(i)
+            return got if got is not None else _read_leaf(r, i + 1, dtype, shape)
+
+        return _decode(meta["tree"], fetch, target)
+
+
+def _walk_manifest(tree: dict, key_path: str) -> dict:
+    """The node at a '/'-separated path: dict keys by name, list and
+    tuple items by index; KeyError where there is none
+    (≙ tpu_blosc/checkpoint.py:506-530)."""
+    node = tree
+    walked = []
+    for seg in (key_path.split("/") if key_path else []):
+        walked.append(seg)
+        t = node.get("t")
+        if t == "dict":
+            for k, v in node["items"]:
+                if k == seg:
+                    node = v
+                    break
+            else:
+                raise KeyError(f"checkpoint has no leaf {'/'.join(walked)!r}")
+        elif t in ("list", "tuple"):
+            if not seg.isdigit() or int(seg) >= len(node["items"]):
+                raise KeyError(f"checkpoint has no leaf {'/'.join(walked)!r}")
+            node = node["items"][int(seg)]
+        else:
+            raise KeyError(
+                f"checkpoint path {'/'.join(walked)!r} descends into a {t!r} leaf"
+            )
+    return node
+
+
+def load_leaf(path, key_path: str, device=False):
+    """One leaf (or subtree) of a checkpoint, reading only its records:
+    ``key_path`` is '/'-separated, as ``"params/layers/0/w"``; the empty
+    path is the root."""
+    target = load_target(device, "load_leaf")
+    with StreamReader(path) as r:
+        node = _walk_manifest(_read_manifest(r)["tree"], key_path)
+
+        def fetch(i: int, dtype: torch.dtype, shape: tuple):
+            if target is not None:
+                return r.read_array(i + 1, dtype, shape=shape, device=target)
+            return _read_leaf(r, i + 1, dtype, shape)
+
+        return _decode(node, fetch, target)

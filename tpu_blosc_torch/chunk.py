@@ -4,7 +4,8 @@ Counterpart: ``tpu_blosc/chunk.py``: ``choose_block_size`` (:124-133),
 ``_native_pipeline_codec`` (:79-110), the native branch of
 ``compress_chunked`` (:156-210), ``parse_block_table`` (:289-299),
 ``_decompress_chunked_native`` and ``_validate_block_layout``
-(:302-382) and ``decompress_chunked`` (:466-517).
+(:302-382), the range decoders ``decompress_single_block`` and
+``decompress_block_run`` (:385-463) and ``decompress_chunked`` (:466-517).
 
 Layout after the 16-byte header (FLAG_SPLIT set):
 
@@ -191,38 +192,86 @@ def payload_offsets(entries: list[tuple[int, bool]], offset: int):
 def decompress_chunked_native(raw: bytes, header: Header,
                               entries: list[tuple[int, bool]], offset: int,
                               type_size: int, native_codec: int,
-                              out_addr: int | None = None) -> bytes | int:
-    """Native decode of every block; with ``out_addr`` the bytes go there
-    and the byte count is returned."""
+                              out_addr: int | None = None, lo_b: int = 0,
+                              hi_b: int | None = None) -> bytes | int:
+    """Native decode of blocks [lo_b, hi_b] (default: every block); with
+    ``out_addr`` the bytes go there and the byte count is returned.  A
+    whole-frame decode validates the block layout here; a sub-range caller
+    (decompress_block_run) validates it once at its entry point."""
     n = header.nbytes_orig
     block_size = header.block_size
-    validate_block_layout(n, block_size, len(entries))
-    offsets, psizes, is_memcpy = payload_offsets(entries, offset)
+    if hi_b is None:
+        validate_block_layout(n, block_size, len(entries))
+        hi_b = len(entries) - 1
+    sub = entries[lo_b : hi_b + 1]
+    base = offset + sum(s for s, _ in entries[:lo_b])
+    offsets, psizes, is_memcpy = payload_offsets(sub, base)
     end = int(offsets[-1] + psizes[-1])
     if end > header.nbytes_comp or end > len(raw):
         raise InvalidDataError(
             "blosc: invalid compressed data: block payload overruns frame"
         )
-    for k, (psz, m) in enumerate(entries):
-        if m and psz != min(block_size, n - k * block_size):
+    for k, (psz, m) in enumerate(sub):
+        if m and psz != min(block_size, n - (lo_b + k) * block_size):
             raise SizeMismatchError(
-                f"blosc: decompressed size mismatch in memcpy block {k}"
+                f"blosc: decompressed size mismatch in memcpy block {lo_b + k}"
             )
-    shuffle_mode = 0
-    if header.has_bitshuffle:
-        shuffle_mode = 2
-    elif header.has_shuffle:
-        shuffle_mode = 1
+    cover = min(n, (hi_b + 1) * block_size) - lo_b * block_size
     try:
         return _native.decompress_blocks(
             np.frombuffer(raw, dtype=np.uint8), offsets, psizes, is_memcpy,
-            block_size, n, type_size, shuffle_mode, native_codec,
+            block_size, cover, type_size, int(header.shuffle_mode), native_codec,
             out_addr=out_addr,
         )
     except DecompressionFailedError:
         raise DecompressionFailedError(
             "blosc: decompression failed: malformed block payload"
         ) from None
+
+
+def decompress_single_block(raw: bytes, header: Header,
+                            entries: list[tuple[int, bool]], poff: int,
+                            bi: int, type_size: int) -> bytes:
+    """Decode block ``bi`` alone, its payload at ``poff``
+    (≙ tpu_blosc/chunk.py:385-432).  The caller validated the layout."""
+    n = header.nbytes_orig
+    this_block = min(header.block_size, n - bi * header.block_size)
+    psize, is_memcpy = entries[bi]
+    if poff + psize > header.nbytes_comp or poff + psize > len(raw):
+        raise InvalidDataError(
+            "blosc: invalid compressed data: block payload overruns frame"
+        )
+    if is_memcpy:
+        if psize != this_block:
+            raise SizeMismatchError(
+                f"blosc: decompressed size mismatch in memcpy block {bi}"
+            )
+        return bytes(raw[poff : poff + psize])
+    native = native_pipeline_codec(header.codec, 1)
+    if native is None:
+        raise InvalidCodecError(f"blosc: unsupported codec: {header.codec}")
+    return _native.decompress_frame(
+        bytes(raw), poff, psize, this_block, type_size, int(header.shuffle_mode), native[0]
+    )
+
+
+def decompress_block_run(raw: bytes, header: Header,
+                         entries: list[tuple[int, bool]], offset: int,
+                         lo_b: int, hi_b: int, type_size: int) -> bytes:
+    """Decode blocks [lo_b, hi_b] into one bytes: runs of 4 or more in one
+    parallel native call, shorter runs block by block
+    (≙ tpu_blosc/chunk.py:435-463)."""
+    native = native_pipeline_codec(header.codec, 1)
+    if native is not None and hi_b - lo_b + 1 >= 4:
+        return decompress_chunked_native(
+            raw, header, entries, offset, type_size, native[0], lo_b=lo_b, hi_b=hi_b,
+        )
+    parts = []
+    poff = offset + sum(s for s, _ in entries[:lo_b])
+    for bi in range(lo_b, hi_b + 1):
+        parts.append(decompress_single_block(raw, header, entries, poff, bi, type_size))
+        poff += entries[bi][0]
+    return b"".join(parts)
 
 
 def decompress_chunked(raw: bytes, header: Header, type_size: int) -> bytes:

@@ -5,15 +5,19 @@ strategies of ``compress_array`` (:692-876; match in ``match.py``) and
 the transfer and device strategies of ``decompress_array`` (:1455-1535,
 :1592-1710).
 
-Compress: every full block of the tensor's bytes is byte-shuffled on the
-tensor's device (filters.batched.shuffle_blocks), the filtered stream
-crosses to the host in one copy, the ragged tail is shuffled there, and
-the native codec writes a FLAG_SPLIT frame.  The frames are byte-identical
-to ``api.compress_with_options(x.cpu().numpy().tobytes(), opts)``:
-filtering on the device is an execution choice, never a format choice.
+Compress: every full block of the tensor's bytes is filtered on the
+tensor's device (byte shuffle: filters.batched.shuffle_blocks; bit
+shuffle: filters.batched.bit_shuffle_blocks), the filtered stream crosses
+to the host in one copy, the ragged tail is filtered there, and the
+native codec writes a FLAG_SPLIT frame.  The frames are byte-identical to
+``api.compress_with_options(x.cpu().numpy().tobytes(), opts)``: filtering
+on the device is an execution choice, never a format choice.
+``compress_array`` is ``_compress_array_stage2(_compress_array_stage1(...))``
+(≙ tpu_blosc/device.py:717-726), so checkpoint writers that pipeline the
+two halves write the same frames by construction.
 
 Decompress ("device"): the host decodes the codec stage only, one copy
-takes the still-filtered stream to the device, and the device unshuffles
+takes the still-filtered stream to the device, and the device unfilters
 it, passing blocks that were stored raw through untouched.
 
 Match ("match", and "auto", which is the same): for LZ4 and LZ4HC, match
@@ -21,8 +25,8 @@ discovery on the device and LZ4 streams written from literal records
 (``match.py``); other codecs, and data the match strategy does not suit,
 take the transfer route.
 
-The rle and records strategies and bitshuffle on the device are not
-ported yet and raise NotImplementedError.
+The rle and records strategies are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,10 +64,6 @@ _STRATEGY_TODO = (
     "compress_array/decompress_array strategy {!r} is not ported yet; "
     "see ROADMAP.md, Queue 1, 'Device codec strategies'"
 )
-_BITSHUFFLE_TODO = (
-    "bitshuffle on the device is not ported yet; see ROADMAP.md, Queue 1, "
-    "'The rest of the filter matrix'"
-)
 
 
 def tensor_bytes(x: torch.Tensor) -> torch.Tensor:
@@ -87,6 +87,14 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
     is "transfer" (frames byte-identical to the host path), or "match" or
     "auto" (see the module docstring).
     """
+    return _compress_array_stage2(_compress_array_stage1(x, opts, strategy))
+
+
+def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str):
+    """The device and copy half of compress_array: the finished frame
+    (bytes) when the tensor took the host route or the match strategy
+    engaged, else ``(filtered host stream, options, block size)`` for
+    _compress_array_stage2 (≙ tpu_blosc/device.py:720-770)."""
     if strategy not in ("transfer", "match", "auto"):
         raise NotImplementedError(_STRATEGY_TODO.format(strategy))
     if not isinstance(x, torch.Tensor):
@@ -108,41 +116,46 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
     use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
     if not use_chunked or not do_filter or nb_full == 0:
         return compress_with_options(flat.cpu().numpy(), opts)
-    if opts.shuffle == Shuffle.BITSHUFFLE:
-        raise NotImplementedError(_BITSHUFFLE_TODO)
     if strategy != "transfer" and opts.codec in (Codec.LZ4, Codec.LZ4HC):
         frame = _match.compress_array_match(flat, opts, nb_full, block_size)
         if frame is not None:
             return frame
-    filtered = _device_filter_fetch(flat, opts.type_size, nb_full, block_size)
-    return _compress_array_stage2(filtered, opts, block_size)
+    return _device_filter_fetch(flat, opts, nb_full, block_size), opts, block_size
 
 
-def _device_filter_fetch(flat: torch.Tensor, type_size: int, nb_full: int,
+def _device_filter_fetch(flat: torch.Tensor, opts: Options, nb_full: int,
                          block_size: int) -> np.ndarray:
-    """Shuffle the full blocks on the device, copy the stream to the host
-    once, shuffle the ragged tail there (≙ tpu_blosc/device.py:773-792)."""
+    """Filter the full blocks on the device with the pair ``opts.shuffle``
+    names, copy the stream to the host once, filter the ragged tail there
+    (≙ tpu_blosc/device.py:773-792).  A tail shorter than one element,
+    and under bit shuffle the bytes past its last whole group of 8
+    elements, stay verbatim."""
+    ts = opts.type_size
     body = nb_full * block_size
     staged = torch.empty_like(flat)
-    filters.shuffle_blocks(
-        flat[:body].view(nb_full, block_size), type_size,
+    filters.filter_blocks(
+        flat[:body].view(nb_full, block_size), ts, opts.shuffle,
         out=staged[:body].view(nb_full, block_size),
     )
     staged[body:] = flat[body:]
     host = staged.cpu().numpy()  # the one device-to-host copy
-    if host.size - body >= type_size:
-        host[body:] = filters.shuffle_bytes(host[body:], type_size)
+    if host.size - body >= ts:
+        host[body:] = filters.filter_bytes(host[body:], ts, opts.shuffle)
     return host
 
 
-def _compress_array_stage2(filtered: np.ndarray, opts: Options,
-                           block_size: int) -> bytes:
-    """Run the native codec over the filtered stream and write the frame
-    (≙ tpu_blosc/device.py:795-876).
+def _compress_array_stage2(staged) -> bytes:
+    """The host half of compress_array: run the native codec over the
+    filtered stream and write the frame (≙ tpu_blosc/device.py:795-876);
+    a finished frame from stage 1 passes through.
 
     Blocks that take the memcpy fallback must carry their raw bytes, so
-    their filtered bytes are unshuffled back on the host.
+    their filtered bytes are unfiltered back on the host, with the
+    inverse of the filter that made them.
     """
+    if isinstance(staged, bytes):
+        return staged
+    filtered, opts, block_size = staged
     native = native_pipeline_codec(opts.codec, opts.level)
     if native is None:
         raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
@@ -153,7 +166,7 @@ def _compress_array_stage2(filtered: np.ndarray, opts: Options,
     )
     for i in np.flatnonzero(memcpy_flags):
         payload = slots[i * slot : i * slot + sizes[i]]
-        payload[:] = filters.unshuffle_bytes(payload, opts.type_size)
+        payload[:] = filters.unfilter_bytes(payload, opts.type_size, opts.shuffle)
     return assemble_split_frame(
         opts, filtered.size, block_size, slots, slot, sizes, memcpy_flags
     )
@@ -166,26 +179,41 @@ def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
     ``device=None`` means the current CUDA device.  ``shape`` defaults to
     1-D.  Strategies: "auto" and "transfer" decode on the host and copy
     the result once; "device" decodes the codec stage on the host and
-    unshuffles on the device, for byte-shuffled multi-block frames at any
-    type size (other frames take the host decode, as in the JAX package).
+    unfilters on the device, for byte- and bit-shuffled multi-block frames
+    at any type size (other frames take the host decode, as in the JAX
+    package, which takes this route at type size 4 only).
     """
     if strategy not in ("auto", "transfer", "device"):
         raise NotImplementedError(_STRATEGY_TODO.format(strategy))
     target = filters.target_device(device, "decompress_array")
+    n = checked_decode_size(data, dtype)
+    out = None
+    if strategy == "device":
+        out = _decompress_array_devfilter(data, n, target)
+    if out is None:
+        out = host_decode(data, n).to(target)
+    out = out.view(dtype)
+    return out.reshape(shape) if shape is not None else out
+
+
+def checked_decode_size(data, dtype: torch.dtype) -> int:
+    """The frame's decoded size, which must be whole ``dtype`` elements
+    (≙ tpu_blosc/device.py:1504-1522)."""
     n = get_decompressed_size(data)
     if n % dtype.itemsize:
         raise InvalidDataError(
             f"blosc: {n} bytes is not a whole number of {dtype} elements"
         )
-    out = None
-    if strategy == "device":
-        out = _decompress_array_devfilter(data, n, target)
-    if out is None:
-        host = torch.empty(n, dtype=torch.uint8)
-        decompress_into(data, host.numpy())
-        out = host.to(target)
-    out = out.view(dtype)
-    return out.reshape(shape) if shape is not None else out
+    return n
+
+
+def host_decode(data, n: int) -> torch.Tensor:
+    """The host half of decompress_array's transfer route: the frame's
+    ``n`` bytes decoded into a fresh CPU uint8 tensor
+    (≙ tpu_blosc/device.py:1525-1535)."""
+    host = torch.empty(n, dtype=torch.uint8)
+    decompress_into(data, host.numpy())
+    return host
 
 
 def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int):
@@ -218,10 +246,12 @@ def _decompress_array_devfilter(data, n: int, device: torch.device):
     if len(raw) < HEADER_SIZE or raw[:4] == b"TPB2":
         return None
     header = parse_header(raw)
-    if not header.is_split or header.has_bitshuffle or not header.has_shuffle:
+    mode = header.shuffle_mode
+    if not header.is_split or mode == Shuffle.NOSHUFFLE:
         return None
     ts, bs = header.type_size, header.block_size
-    if ts < 2 or bs == 0 or bs % ts:
+    quantum = 8 * ts if mode == Shuffle.BITSHUFFLE else ts
+    if ts < 2 or bs == 0 or bs % quantum:
         return None
     native = native_pipeline_codec(header.codec, 1)
     nb_full = n // bs
@@ -234,13 +264,13 @@ def _decompress_array_devfilter(data, n: int, device: torch.device):
     body = nb_full * bs
     tail_raw = n > body and entries[nb_full][1]
     if n - body >= ts and not tail_raw:
-        host[body:] = torch.from_numpy(filters.unshuffle_bytes(host[body:].numpy(), ts))
+        host[body:] = torch.from_numpy(filters.unfilter_bytes(host[body:].numpy(), ts, mode))
     stream = host.to(device)  # the one host-to-device copy
     keep = [m for _, m in entries[:nb_full]]
     keep_raw = torch.tensor(keep, dtype=torch.bool).to(device) if any(keep) else None
     out = torch.empty_like(stream)
-    filters.unshuffle_blocks(
-        stream[:body].view(nb_full, bs), ts, keep_raw=keep_raw,
+    filters.unfilter_blocks(
+        stream[:body].view(nb_full, bs), ts, mode, keep_raw=keep_raw,
         out=out[:body].view(nb_full, bs),
     )
     out[body:] = stream[body:]

@@ -10,7 +10,11 @@ library with a plain C interface:
 - ``match.cu``: ``tpbt_match_nibble``, replacing
   ``match_select_open_nibble`` (:343-497);
 - ``probe.cu``: ``tpbt_probe_tiles``, replacing ``_probe_runs`` and
-  ``_probe_bytesum`` (:80-126).
+  ``_probe_bytesum`` (:80-126);
+- ``bitshuffle.cu``: ``tpbt_bitshuffle_blocks`` /
+  ``tpbt_bitunshuffle_blocks``, replacing the XLA device programs
+  ``_bit_shuffle_batch_dev`` and ``_bit_unshuffle_batch_dev``
+  (``tpu_blosc/filters/batched.py:65-79``); the launcher picks its path.
 
 nvcc compiles each source for ``sm_90a``, all at once, into
 ``tpu_blosc_torch/_build/`` at the first launch; a change to any source
@@ -53,7 +57,7 @@ VEC16_TYPE_SIZES = (2, 4, 8, 16)
 
 # launches of each kernel since the last reset_launches()
 launches = {"shuffle_blocks": 0, "unshuffle_blocks": 0, "match_nibble": 0,
-            "probe_tiles": 0}
+            "probe_tiles": 0, "bit_shuffle_blocks": 0, "bit_unshuffle_blocks": 0}
 launches.update({f"{kernel}.{path}": 0 for kernel in ("shuffle_blocks", "unshuffle_blocks")
                  for path in SHUFFLE_PATHS})
 
@@ -107,6 +111,8 @@ def lib() -> ctypes.CDLL:
                     ("tpbt_unshuffle_blocks", [p, p, p, i64, i64, i64, ctypes.c_int, p]),
                     ("tpbt_match_nibble", [p, p, p, i64, i64, i64, i64, p]),
                     ("tpbt_probe_tiles", [p, i64, p, p]),
+                    ("tpbt_bitshuffle_blocks", [p, p, i64, i64, i64, p]),
+                    ("tpbt_bitunshuffle_blocks", [p, p, p, i64, i64, i64, p]),
                 ):
                     fn = getattr(handle, name)
                     fn.restype = ctypes.c_int
@@ -129,6 +135,17 @@ def check_blocks(blocks: torch.Tensor, type_size: int) -> None:
     if blocks.shape[1] % type_size:
         raise ValueError(
             f"block size {blocks.shape[1]} is not a multiple of type_size {type_size}"
+        )
+
+
+def check_bit_blocks(blocks: torch.Tensor, type_size: int) -> None:
+    """The geometry every bit-shuffle route takes: check_blocks', and
+    whole groups of 8 elements, ``bs % (8 * type_size) == 0``."""
+    check_blocks(blocks, type_size)
+    if blocks.shape[1] % (8 * type_size):
+        raise ValueError(
+            f"block size {blocks.shape[1]} is not a multiple of 8*type_size "
+            f"({8 * type_size})"
         )
 
 
@@ -187,6 +204,17 @@ def _output(blocks: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out
 
 
+def _keep_ptr(keep_raw: torch.Tensor | None, blocks: torch.Tensor) -> int | None:
+    """The device address of a (nb,) bool ``keep_raw``, None for none."""
+    if keep_raw is None:
+        return None
+    nb = blocks.shape[0]
+    _check_cuda(keep_raw, blocks.device, "keep_raw")
+    if keep_raw.dtype != torch.bool or keep_raw.shape != (nb,) or not keep_raw.is_contiguous():
+        raise ValueError(f"keep_raw must be a contiguous bool tensor of shape ({nb},)")
+    return keep_raw.data_ptr()
+
+
 def _raise_if_failed(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -239,12 +267,7 @@ def unshuffle_blocks(blocks: torch.Tensor, type_size: int,
     check_blocks(blocks, type_size)
     out = _output(blocks, out)
     nb, bs = blocks.shape
-    keep_ptr = None
-    if keep_raw is not None:
-        _check_cuda(keep_raw, blocks.device, "keep_raw")
-        if keep_raw.dtype != torch.bool or keep_raw.shape != (nb,) or not keep_raw.is_contiguous():
-            raise ValueError(f"keep_raw must be a contiguous bool tensor of shape ({nb},)")
-        keep_ptr = keep_raw.data_ptr()
+    keep_ptr = _keep_ptr(keep_raw, blocks)
     if nb == 0:
         return out
     path = _pick_path(path, blocks, type_size, out)
@@ -256,6 +279,49 @@ def unshuffle_blocks(blocks: torch.Tensor, type_size: int,
     _raise_if_failed(rc, f"tpbt_unshuffle_blocks ({path} path)")
     launches["unshuffle_blocks"] += 1
     launches[f"unshuffle_blocks.{path}"] += 1
+    return out
+
+
+def bit_shuffle_blocks(blocks: torch.Tensor, type_size: int,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """Bit-shuffle each row of a CUDA (nb, bs) uint8 tensor, in the
+    reference's local groups of 8 elements; ``bs % (8 * type_size)`` must
+    be 0."""
+    _require_cuda(blocks)
+    check_bit_blocks(blocks, type_size)
+    out = _output(blocks, out)
+    nb, bs = blocks.shape
+    if nb == 0:
+        return out
+    with torch.cuda.device(blocks.device):
+        rc = lib().tpbt_bitshuffle_blocks(
+            blocks.data_ptr(), out.data_ptr(), nb, bs, type_size,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "tpbt_bitshuffle_blocks")
+    launches["bit_shuffle_blocks"] += 1
+    return out
+
+
+def bit_unshuffle_blocks(blocks: torch.Tensor, type_size: int,
+                         keep_raw: torch.Tensor | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse of bit_shuffle_blocks; rows where ``keep_raw`` (a (nb,)
+    bool tensor) is True are copied verbatim."""
+    _require_cuda(blocks)
+    check_bit_blocks(blocks, type_size)
+    out = _output(blocks, out)
+    nb, bs = blocks.shape
+    keep_ptr = _keep_ptr(keep_raw, blocks)
+    if nb == 0:
+        return out
+    with torch.cuda.device(blocks.device):
+        rc = lib().tpbt_bitunshuffle_blocks(
+            blocks.data_ptr(), out.data_ptr(), keep_ptr, nb, bs, type_size,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "tpbt_bitunshuffle_blocks")
+    launches["bit_unshuffle_blocks"] += 1
     return out
 
 

@@ -6,12 +6,13 @@ count phase and the literal-mask stage of ``_device_match_core_fused``
 (:277-349) and ``_device_match_core`` (:352-444), the monolithic plan of
 ``_fetch_match_records`` (:558-578) with ``_device_gather_vals``
 (:463-467) and ``_device_rows_gather`` (:210-213), ``_filter_host`` and
-``_unfilter_host`` (:879-890) for byte shuffle, ``_reconstruct_match_row``
-(:893-916) and ``_compress_array_match`` (:919-1084).  Bitshuffle on the
-device route raises before it gets here (device.py).
+``_unfilter_host`` (:879-890, here filters.filter_bytes and
+unfilter_bytes), ``_reconstruct_match_row`` (:893-916) and
+``_compress_array_match`` (:919-1084).
 
-Each full block is byte-shuffled on the tensor's device and seen as ts
-segments of seg = bs/ts bytes (one byte plane each).  Per segment the
+Each full block is filtered on the tensor's device with the pair
+``opts.shuffle`` names (byte or bit shuffle) and seen as ts segments of
+seg = bs/ts bytes (under byte shuffle, one byte plane each).  Per segment the
 device picks the candidate offset d with the most equal bytes x[p] ==
 x[p-d] (the count phase, torch ops), then builds the literal mask by an
 opening of the equality runs (the match kernel, filters/match.py).
@@ -191,7 +192,7 @@ def emit_blocks(opts: Options, seg: int, block_size: int, nb_full: int,
     for j, blk in enumerate(rebuild):
         payload = slots[j * slot : j * slot + sizes[j]]
         if memcpy_flags[j]:
-            payloads[blk] = filters.unshuffle_bytes(payload, ts).tobytes()
+            payloads[blk] = filters.unfilter_bytes(payload, ts, opts.shuffle).tobytes()
             entries[blk] = ENTRY_MEMCPY | block_size
         else:
             payloads[blk] = payload.tobytes()
@@ -200,10 +201,10 @@ def emit_blocks(opts: Options, seg: int, block_size: int, nb_full: int,
 
 
 def tail_payload(tail: np.ndarray, opts: Options) -> tuple[bytes, int]:
-    """(payload, entry) of the ragged tail: the host shuffle, then one LZ4
+    """(payload, entry) of the ragged tail: the host filter, then one LZ4
     or LZ4HC block, or the raw bytes when that does not shrink it."""
     depth = native_pipeline_codec(opts.codec, opts.level)[1]
-    comp = _nb.lz4_compress(filters.shuffle_bytes(tail, opts.type_size), depth)
+    comp = _nb.lz4_compress(filters.filter_bytes(tail, opts.type_size, opts.shuffle), depth)
     if len(comp) >= tail.size:
         return tail.tobytes(), ENTRY_MEMCPY | tail.size
     return comp, len(comp)
@@ -224,7 +225,8 @@ def compress_array_match(flat: torch.Tensor, opts: Options, nb_full: int,
     if seg < 256 or body >= 2**31:
         return None
     offsets = match_offsets(seg)
-    segs = filters.shuffle_blocks(flat[:body].view(nb_full, block_size), ts).view(-1, seg)
+    segs = filters.filter_blocks(flat[:body].view(nb_full, block_size), ts,
+                                 opts.shuffle).view(-1, seg)
     best, lit_counts, packed = match_core(segs, offsets)
     lit_counts = lit_counts.cpu().numpy().astype(np.int64)
     d_all = np.asarray(offsets, dtype=np.int32)[best.cpu().numpy()]

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
 import threading
 
 import numpy as np
@@ -86,6 +87,18 @@ _SIGNATURES = {
     "tpb_unshuffle": (None, [_p, _p, _i64, _int]),
     "tpb_bitshuffle": (None, [_p, _p, _i64, _int]),
     "tpb_bitunshuffle": (None, [_p, _p, _i64, _int]),
+    "tpb_compress_batch": (None, [
+        _p, _p, _i64,            # srcs, ns, nf
+        _int, _int,              # ts, shuffle_mode
+        _int, _int, _int,        # header_codec, codec, depth
+        _p, _p, _p,              # dsts, results, idx scratch
+    ]),
+    "tpb_decompress_batch": (None, [
+        _p, _p, _p,              # frames, psizes, ns
+        _p, _p, _p,              # tss, modes, codecs (int32 each)
+        _i64,                    # nf
+        _p, _p, _p,              # outs, results, idx scratch
+    ]),
 }
 
 _lib = None
@@ -313,6 +326,120 @@ def compress_frame(data, type_size: int, shuffle_mode: int, header_codec: int,
     if total < 0:
         raise RuntimeError(f"native compress_frame failed ({total})")
     return dst[:total].tobytes()
+
+
+def compress_frames(items, type_size: int, shuffle_mode: int,
+                    header_codec: int, native_codec: int, depth: int) -> list[bytes]:
+    """compress_frame of every item in one native call, which schedules
+    small frames across the core pool; the frames are those per-item
+    compress_frame writes (≙ tpu_blosc/native/backend.py:647-671, whose
+    fastcall module calls the same tpb_compress_batch).  Items must be
+    non-empty."""
+    srcs = [as_u8(d) for d in items]  # referenced until the call returns
+    nf = len(srcs)
+    if nf == 0:
+        return []
+    dsts = [np.empty(_universal_bound(a.size), dtype=np.uint8) for a in srcs]
+    src_ptrs = np.array([_addr(a) for a in srcs], dtype=np.uintp)
+    dst_ptrs = np.array([_addr(d) for d in dsts], dtype=np.uintp)
+    ns = np.array([a.size for a in srcs], dtype=np.int64)
+    results = np.empty(nf, dtype=np.int64)
+    scratch = np.empty(nf, dtype=np.int64)
+    lib().tpb_compress_batch(
+        _addr(src_ptrs), _addr(ns), nf, type_size, shuffle_mode,
+        header_codec, native_codec, depth,
+        _addr(dst_ptrs), _addr(results), _addr(scratch),
+    )
+    failed = np.flatnonzero(results < 0)
+    if failed.size:
+        i = int(failed[0])
+        raise RuntimeError(
+            f"native compress_frame failed ({int(results[i])}) at batch index {i}"
+        )
+    return [d[:r].tobytes() for d, r in zip(dsts, results)]
+
+
+def _batch_frame(raw: bytes, native_map: bytes, ts_override: int):
+    """(payload size, n, ts, shuffle mode, native codec) of a plain
+    single-block frame the native batch decoder takes, else None (≙
+    parse_batch_frame, tpu_blosc/native/fastmod.c:255-272)."""
+    if len(raw) <= 16 or raw[0] != 2:
+        return None
+    codec_id, flags, ts_hdr = raw[1], raw[2], raw[3]
+    if flags & 0xA or codec_id >= 6 or native_map[codec_id] == 0xFF:
+        return None  # FLAG_SPLIT | FLAG_MEMCPY, or no native codec
+    n_orig, _, n_comp = struct.unpack_from("<III", raw, 4)
+    if n_comp <= 16 or n_comp > len(raw) or n_orig == 0:
+        return None
+    mode = 2 if flags & 0x4 else 1 if flags & 0x1 else 0
+    ts = ts_override if ts_override > 0 else ts_hdr
+    return n_comp - 16, n_orig, ts, mode, native_map[codec_id]
+
+
+def _decompress_batch(frames: list, params: list, outs: list) -> np.ndarray:
+    """Run tpb_decompress_batch over ``frames`` with their _batch_frame
+    ``params`` into the u8 arrays ``outs``; the per-frame results (n on
+    success)."""
+    nf = len(frames)
+    arrays = [np.frombuffer(f, dtype=np.uint8) for f in frames]
+    frame_ptrs = np.array([_addr(a) for a in arrays], dtype=np.uintp)
+    out_ptrs = np.array([_addr(o) for o in outs], dtype=np.uintp)
+    psizes, ns, tss, modes, codecs = (np.array(col, dtype=dt) for col, dt in zip(
+        zip(*params), (np.int64, np.int64, np.int32, np.int32, np.int32)))
+    results = np.empty(nf, dtype=np.int64)
+    scratch = np.empty(nf, dtype=np.int64)
+    lib().tpb_decompress_batch(
+        _addr(frame_ptrs), _addr(psizes), _addr(ns), _addr(tss), _addr(modes),
+        _addr(codecs), nf, _addr(out_ptrs), _addr(results), _addr(scratch),
+    )
+    return results
+
+
+def decompress_frames(items: list, type_size: int, native_map: bytes) -> list:
+    """Batch single-block frame decode; None entries mean "not handled"
+    (not a plain single-block frame of a native codec, or a payload that
+    failed): the caller re-runs those through the scalar path, which owns
+    every typed error (≙ tpu_blosc/native/backend.py:674-685).
+    ``native_map[codec_id]`` is the native codec of a header codec id,
+    0xFF for none."""
+    out: list = [None] * len(items)
+    picked = [(i, p) for i, p in ((i, _batch_frame(f, native_map, type_size))
+                                  for i, f in enumerate(items)) if p is not None]
+    if not picked:
+        return out
+    idx = [i for i, _ in picked]
+    params = [p for _, p in picked]
+    bufs = [alloc_bytes(p[1]) for p in params]
+    views = [np.ctypeslib.as_array(ctypes.cast(addr, ctypes.POINTER(ctypes.c_ubyte)),
+                                   shape=(p[1],))
+             for (_, addr), p in zip(bufs, params)]
+    results = _decompress_batch([items[i] for i in idx], params, views)
+    for i, (buf, _), p, r in zip(idx, bufs, params, results):
+        if r == p[1]:
+            out[i] = buf
+    return out
+
+
+def decompress_frames_into(items: list, outs: list, native_map: bytes) -> list:
+    """Batch decode straight into caller buffers: ``outs[i]`` is a
+    writable flat u8 array or None; entries are byte counts, or None where
+    the item punts to the scalar path, as in decompress_frames, or its
+    buffer is missing or too small (≙ tpu_blosc/native/backend.py:688-697)."""
+    res: list = [None] * len(items)
+    picked = []
+    for i, (frame, view) in enumerate(zip(items, outs)):
+        p = _batch_frame(frame, native_map, 0)
+        if p is not None and view is not None and view.size >= p[1]:
+            picked.append((i, p))
+    if not picked:
+        return res
+    idx = [i for i, _ in picked]
+    params = [p for _, p in picked]
+    results = _decompress_batch([items[i] for i in idx], params, [outs[i] for i in idx])
+    for i, p, r in zip(idx, params, results):
+        if r == p[1]:
+            res[i] = int(r)
+    return res
 
 
 def decompress_frame(data: bytes, payload_off: int, payload_size: int,
