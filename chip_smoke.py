@@ -20,10 +20,20 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
      ts 4; each launcher refusing a path whose preconditions fail.
      Timed at (64, ~1 MiB) for type sizes 2, 3, 4, 8 and 16 and at
      (16384, 4096) for ts 4;
-   - the match kernel: seg 256, 4096, 16384 and 262144, random and
-     periodic rows, offsets 1, 3, 48, 1024 and one that leaves the whole
-     row literal (and, in step 5, path C's own (1024, 262144) segments at
-     their offsets, where it is timed);
+   - the match strategy's two kernels, each on both of its paths (vec16
+     and generic: aligned rows, the same rows on the generic path, and
+     views 4 bytes off a 16-byte boundary), at seg 256, 1000, 4096, 16384,
+     18440, 20480 and 262144 on random and periodic rows.  The mask
+     kernel, in its nibble and its packed form: offsets 1, 3, 48, 1024,
+     3000 (above the kernels' shared-memory halo) and one that leaves the
+     whole row literal, and run lengths 1, 3, 8 and 9 with tails 0, 5 and
+     16.  The count kernel: the candidate lists of
+     14 and of 20 offsets and one with an offset above the halo, plus
+     rows with no equal bytes, constant rows, a row where two offsets
+     tie, rows whose only equal pair straddles a tile edge, and a
+     periodic row followed by a row that starts with the same bytes.
+     Each launcher refusing a path whose preconditions fail (and, in
+     step 7, path C's own (1024, 262144) segments, where both are timed);
    - the probe kernel: 1, 2 and 4 tiles and a 64 MiB (32768, 512) tensor,
      timed on the latter;
    - the bit-shuffle pair: random bytes at type sizes 2, 3, 4, 5, 8, 16
@@ -49,7 +59,10 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
    card (the transfer and the device strategy) and load_leaf, in a
    temporary directory;
 9. suggest_codec and suggest_options on A's, B's and random bytes;
-10. prints the kernels' JSON line and, last, the ok line.
+10. prints the kernels' JSON line (each kernel's launches on the main
+    paths, its time, its plain version's, the time of the one PyTorch call
+    that computes the same function where there is one, and the least
+    time the card could take: see ``bound``) and, last, the ok line.
 
 Paths A, B, D and E run compress_array on the CUDA tensor and
 decompress_array(strategy="device"), and must give the frame of the host
@@ -61,8 +74,9 @@ frame the CPU route (the kernels' plain versions) writes; so must E's
 match frame on a 16 MiB slice.  F's file must equal the one save_pytree
 writes from the same tree on the CPU, and every load must give every
 leaf back exactly.  Every kernel must be launched by the path it serves
-(A, B and C the shuffle pair on its vec16 path, D and E the bit-shuffle
-pair, F the shuffle pair): the launch counts are reset just before each
+(A, B and C the shuffle pair on its vec16 path, C the mask and the count
+kernel of the match strategy on theirs, D and E the bit-shuffle pair, F
+the shuffle pair): the launch counts are reset just before each
 path and read just after.  Any failure raises, so the script exits
 non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
@@ -126,6 +140,25 @@ def host_s(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# bytes a second, and operations a second outside the tensor cores (the
+# float32 rate; the kernels here do integer and bit operations, for which
+# the data sheet gives no rate of its own, and the card has half as many
+# int32 lanes, so this bound is a generous one).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+
+def bound(nbytes: int, operations: int) -> dict:
+    """The least time the card could take to move ``nbytes`` (each input
+    read once, each output written once) and to do ``operations``: the
+    larger of the two times, in ms, and which of them it is."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = operations / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def phase_environment() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -146,6 +179,37 @@ def phase_environment() -> None:
     print(f"build, both at once: {time.perf_counter() - t0:.1f} s; host codec "
           f"{backend.build_seconds:.1f} s compiling, CUDA kernels "
           f"({len(kernels.SOURCES)} sources) {kernels.build_seconds:.1f} s compiling")
+    print_kernel_resources(kernels)
+
+
+def print_kernel_resources(kernels) -> None:
+    """Registers, spills and shared memory of every kernel, as ptxas
+    reports them: each source compiled once more with -Xptxas -v, all at
+    once, into a temporary directory."""
+    import re
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ptxas_") as tmp:
+        procs = [(src, subprocess.Popen(
+            [kernels.nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", src,
+             "-o", os.path.join(tmp, os.path.basename(src) + ".o")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+            for src in kernels.SOURCES]
+        for src, proc in procs:
+            _, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"nvcc -Xptxas -v of {src}: {err[-2000:]}")
+            found = re.findall(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+                r"loads\s*\n[^\n]*Used (\d+) registers([^\n]*)", err, re.S)
+            names = [f[0] for f in found]
+            if shutil.which("c++filt"):
+                names = subprocess.run(["c++filt", "-p"], input="\n".join(names), text=True,
+                                       capture_output=True, check=True).stdout.split("\n")
+            rows = []
+            for name, (_, stores, loads, regs, rest) in zip(names, found):
+                shared = re.search(r"(\d+) bytes smem", rest)
+                rows.append(f"{name.rsplit('::', 1)[-1]} {regs} registers, {stores}+{loads} "
+                            f"bytes spilled, {shared.group(1) if shared else 0} bytes shared")
+            print(f"ptxas, {os.path.basename(src)}: " + "; ".join(rows))
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -279,6 +343,11 @@ def phase_kernels(gen) -> dict:
             "unshuffle": lambda: kernels.unshuffle_blocks(s, ts),
             "unshuffle_plain": lambda: batched.unshuffle_blocks_plain(s, ts),
         }
+        # the one PyTorch call that computes the same function; the port
+        # never calls it outside its plain versions
+        ne = bs // ts
+        fns["shuffle_library"] = lambda: x.view(nb, ne, ts).transpose(1, 2).contiguous()
+        fns["unshuffle_library"] = lambda: s.view(nb, ts, ne).transpose(1, 2).contiguous()
         if path == "vec16":
             fns["shuffle_generic"] = lambda: kernels.shuffle_blocks(x, ts, path="generic")
             fns["unshuffle_generic"] = lambda: kernels.unshuffle_blocks(s, ts, path="generic")
@@ -421,25 +490,141 @@ def periodic_rows(rng, nrows: int, seg: int, period: int) -> np.ndarray:
     return rows
 
 
+def off_by_4(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the contiguous uint8 tensor ``t`` that starts 4 bytes past
+    a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=torch.uint8, device=t.device)
+    view = buf[4: 4 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def count_rows(rng, seg: int) -> tuple[np.ndarray, dict]:
+    """Rows that try the count kernel's edges, and the index each must get
+    with match_offsets(seg) (for those where it is plain to see)."""
+    distinct = (np.arange(seg) % 251).astype(np.uint8)  # no offset divides by 251
+    rows = [distinct, np.full(seg, 7, np.uint8)]
+    want = {0: 0, 1: 0}  # no equal bytes; constant: d = 1 has the most
+    tie = distinct.copy()
+    tie[50], tie[120] = tie[48], tie[116]  # one pair at d = 2, one at d = 4
+    want[len(rows)] = 1
+    rows.append(tie)
+    if seg > 16384 + 2:
+        # the only equal pair straddles the edge between two tiles
+        for d, index in ((3, 2), (1024, 19)):
+            edge = distinct.copy()
+            edge[16384 + 1] = edge[16384 + 1 - d]
+            want[len(rows)] = index
+            rows.append(edge)
+    # a periodic row, then a row that goes on with its pattern for 48 bytes
+    # and has one equal pair of its own, at d = 1
+    pattern = rng.integers(0, 256, 48, dtype=np.uint8)
+    rows.append(np.tile(pattern, seg // 48 + 1)[:seg])
+    follower = distinct.copy()
+    follower[:48] = np.tile(pattern, seg // 48 + 2)[seg: seg + 48]
+    follower[100] = follower[99]
+    rows.append(follower)
+    return np.stack(rows), want
+
+
+def check_match_refusals(rng) -> None:
+    """Each match launcher, handed a path whose preconditions fail or
+    arguments out of range, returns cudaErrorInvalidValue, which the
+    wrapper raises, and counts no launch."""
+    from tpu_blosc_torch.filters import kernels
+
+    aligned = torch.from_numpy(rng.integers(0, 256, (8, 4096), dtype=np.uint8)).to(DEVICE)
+    cases = {
+        "rows 4 bytes off": off_by_4(aligned),
+        "seg 1000": aligned.view(-1)[: 8 * 1000].view(8, 1000),
+    }
+    for what, x in cases.items():
+        row_d = torch.ones(x.shape[0], dtype=torch.int32, device=DEVICE)
+        before = dict(kernels.launches)
+        for name, fn in (("match_nibble", lambda: kernels.match_nibble(x, row_d, 16, 8, path="vec16")),
+                         ("match_mask", lambda: kernels.match_mask(x, row_d, 16, 8, path="vec16")),
+                         ("match_count", lambda: kernels.match_count(x, (1, 2, 3), path="vec16"))):
+            try:
+                fn()
+            except RuntimeError as e:
+                check("CUDA error 1" in str(e), f"{name} refusal names the error: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke check failed: {name} took path vec16 at {what}")
+        check(kernels.launches == before, f"a refused match launch was counted ({what})")
+    lib = kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    row_d = torch.ones(8, dtype=torch.int32, device=DEVICE)
+    out = torch.empty((8, 1024), dtype=torch.uint8, device=DEVICE)
+    offs = torch.ones(33, dtype=torch.int32, device=DEVICE)
+    counts = torch.zeros((8, 33), dtype=torch.int32, device=DEVICE)
+    best = torch.empty(8, dtype=torch.int64, device=DEVICE)
+    ptr = aligned.data_ptr()
+    rcs = {
+        "T = 10": lib.tpbt_match_nibble(ptr, row_d.data_ptr(), out.data_ptr(), 8, 4096, 16, 10, 1, stream),
+        "tail < 0": lib.tpbt_match_nibble(ptr, row_d.data_ptr(), out.data_ptr(), 8, 4096, -1, 8, 0, stream),
+        "seg % 4": lib.tpbt_match_nibble(ptr, row_d.data_ptr(), out.data_ptr(), 8, 4094, 16, 8, 0, stream),
+        "path 2": lib.tpbt_match_nibble(ptr, row_d.data_ptr(), out.data_ptr(), 8, 4096, 16, 8, 2, stream),
+        "a packed mask at seg % 8": lib.tpbt_match_mask(ptr, row_d.data_ptr(), out.data_ptr(),
+                                                        counts.data_ptr(), 8, 4092, 16, 8, 0, stream),
+        "33 offsets": lib.tpbt_match_count(ptr, offs.data_ptr(), counts.data_ptr(), best.data_ptr(),
+                                           8, 4096, 33, 1, stream),
+        "no offsets": lib.tpbt_match_count(ptr, offs.data_ptr(), counts.data_ptr(), best.data_ptr(),
+                                           8, 4096, 0, 0, stream),
+    }
+    check(set(rcs.values()) == {1}, f"the match launchers refuse bad arguments: {rcs}")
+    print(f"kernels: both match launchers refuse path vec16 at {', '.join(cases)}, "
+          f"and {', '.join(rcs)}")
+
+
 def phase_match_kernel(rng) -> dict:
-    """The match kernel against its plain version at four segment
-    lengths; returns the largest error."""
+    """The mask and the count kernel against their plain versions at seven
+    segment lengths, each on both paths; returns the largest errors."""
+    from tpu_blosc_torch import match as tm
     from tpu_blosc_torch.filters import kernels, match as fm
 
-    worst = 0
+    worst = {"nibble": 0, "count": 0}
+    kernels.reset_launches()
 
-    def compare(segs, row_d, what):
-        nonlocal worst
-        got = kernels.match_nibble(segs, row_d, fm.ROW_TAIL_LITERALS, fm.MATCH_T)
-        want = fm.match_nibble_plain(segs, row_d)
-        torch.cuda.synchronize()
-        worst = max(worst, int((got.int() - want.int()).abs().max()))
-        check(torch.equal(got, want), f"match kernel vs plain, {what}")
-        return got
+    def compare(segs, row_d, what, tail=fm.ROW_TAIL_LITERALS, T=fm.MATCH_T):
+        """The mask kernel on aligned rows (the picked path and the
+        generic one) and on a view 4 bytes off, against the plain version."""
+        want = fm.match_nibble_plain(segs, row_d, tail, T)
+        picked = kernels.match_path(segs.shape[1], segs.data_ptr())
+        for x, path in ((segs, None), (segs, "generic"), (off_by_4(segs), None)):
+            before = dict(kernels.launches)
+            got = kernels.match_nibble(x, row_d, tail, T, path=path)
+            torch.cuda.synchronize()
+            took = "generic" if path or x is not segs else picked
+            check(kernels.launches[f"match_nibble.{took}"] == before[f"match_nibble.{took}"] + 1,
+                  f"match kernel took the {took} path, {what}")
+            worst["nibble"] = max(worst["nibble"], int((got.int() - want.int()).abs().max()))
+            check(torch.equal(got, want), f"match kernel ({took}) vs plain, {what}")
+            if segs.shape[1] % 8 == 0:  # the same kernel's packed form
+                counts, packed = kernels.match_mask(x, row_d, tail, T, path=path)
+                want_counts, want_packed = fm.literal_mask_plain(segs, row_d, tail, T)
+                torch.cuda.synchronize()
+                worst["nibble"] = max(worst["nibble"], max_abs_diff(packed, want_packed),
+                                      int((counts - want_counts).abs().max()))
+                check(torch.equal(packed, want_packed) and torch.equal(counts, want_counts),
+                      f"match kernel's packed mask and counts ({took}) vs plain, {what}")
+        return want
 
-    for seg in (256, 4096, 16384, 262144):
+    def compare_count(segs, offsets, what):
+        want = fm.count_best_plain(segs, offsets)
+        for x, path in ((segs, None), (segs, "generic"), (off_by_4(segs), None)):
+            got = kernels.match_count(x, offsets, path=path)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.int64 and got.shape == want.shape,
+                  f"count kernel gives one int64 index a row, {what}")
+            worst["count"] = max(worst["count"], int((got - want).abs().max()))
+            check(torch.equal(got, want), f"count kernel vs plain, {what}: "
+                  f"{got.tolist()} != {want.tolist()}")
+        return want
+
+    # 18440 and 20480: a short last tile after a whole one, on each path
+    for seg in (256, 1000, 4096, 16384, 18440, 20480, 262144):
         nrows = 64 if seg < 262144 else 16
-        offsets = [d for d in (1, 3, 48, 1024) if d < seg] + [seg - 20]
+        offsets = [d for d in (1, 3, 48, 1024, 3000) if d < seg] + [seg - 20]
         half = nrows // 2
         rows = np.concatenate([
             rng.integers(0, 256, (half, seg), dtype=np.uint8),
@@ -456,11 +641,39 @@ def phase_match_kernel(rng) -> dict:
                              dtype=torch.int32, device=DEVICE)
         compare(segs, mixed, f"seg={seg} mixed offsets")
         check(lit[seg - 20] == nrows * seg, f"seg={seg}: d = seg - 20 leaves every byte literal")
+        if seg == 4096:
+            for T, tail in ((1, 0), (1, 16), (3, 5), (8, 0), (9, 16), (9, 5)):
+                compare(segs, mixed, f"seg={seg} mixed offsets T={T} tail={tail}", tail, T)
         print(f"match kernel: seg={seg}, {nrows} rows (half random, half periodic "
-              f"with 1% breaks), equal to the plain version at d={offsets} and mixed; "
-              f"literal bytes per d: {lit}")
+              f"with 1% breaks), equal to the plain version at d={offsets} and mixed, "
+              f"on both paths and 4 bytes off alignment; literal bytes per d: {lit}")
 
-    return {"max_abs_err": worst}
+        lists = {f"{len(tm.match_offsets(seg))} candidates": tm.match_offsets(seg)}
+        if seg > 256:
+            lists["14 candidates"] = tm.match_offsets(256)
+        if seg > 3000:
+            lists["with an offset above the halo"] = (1, 48, 3000, seg - 20)
+        edge_rows, want = count_rows(rng, seg)
+        edges = torch.from_numpy(edge_rows).to(DEVICE)
+        for name, offs in lists.items():
+            offs = tuple(d for d in offs if d < seg)
+            best = compare_count(segs, offs, f"seg={seg} {name}")
+            edge_best = compare_count(edges, offs, f"seg={seg} {name}, edge rows")
+            if offs == tm.match_offsets(seg):
+                for row, index in want.items():
+                    check(int(edge_best[row]) == index,
+                          f"seg={seg}: edge row {row} gets index {index}, not {int(edge_best[row])}")
+                print(f"count kernel: seg={seg}, equal to the plain version on the {nrows} rows "
+                      f"and {len(edge_rows)} edge rows with {', '.join(lists)}, on both paths "
+                      f"and 4 bytes off alignment; offsets picked {sorted(set(np.asarray(offs)[best.cpu().numpy()].tolist()))}, "
+                      f"edge rows {edge_best.tolist()}")
+
+    taken = dict(kernels.launches)
+    for kernel in ("match_nibble", "match_count"):
+        check(all(taken[f"{kernel}.{path}"] >= 1 for path in kernels.MATCH_PATHS),
+              f"{kernel} ran on both paths ({taken})")
+    check_match_refusals(rng)
+    return {"max_abs_err": worst["nibble"], "count_max_abs_err": worst["count"]}
 
 
 def phase_probe_kernel(rng) -> dict:
@@ -521,8 +734,9 @@ def run_path_c(tbt, x, opts):
 
 def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
     """Check path C's result and time it beside the transfer route and
-    stage by stage; returns the match kernel's and its plain version's
-    times and largest difference on the path's own segments."""
+    stage by stage; returns, for the mask and the count kernel, the
+    kernel's and its plain version's times, the largest difference and
+    the bound on the path's own segments."""
     from tpu_blosc_torch import chunk, device as dev, match as tm
     from tpu_blosc_torch.filters import kernels, match as fm
     from tpu_blosc_torch.native import backend as nb
@@ -558,7 +772,7 @@ def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
     offsets = tm.match_offsets(seg)
     blocks = flat.view(nb_full, bs)
     segs = tbt.filters.shuffle_blocks(blocks, ts).view(-1, seg)
-    best = tm.count_best(segs, offsets)
+    best = fm.count_best(segs, offsets)
     offs = torch.tensor(offsets, dtype=torch.int32, device=DEVICE)
     row_d = offs[best]
     lit_counts_d, packed = tm.literal_mask(segs, row_d)
@@ -575,9 +789,9 @@ def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
                                        vals, dense_idx, dense)
     stages = {
         "shuffle kernel": lambda: tbt.filters.shuffle_blocks(blocks, ts),
-        "count phase (torch ops)": lambda: tm.count_best(segs, offsets),
-        "match kernel": lambda: fm.match_nibble(segs, row_d),
-        "mask (kernel + popcount + pack)": lambda: tm.literal_mask(segs, row_d),
+        "count kernel": lambda: fm.count_best(segs, offsets),
+        "mask kernel": lambda: fm.literal_mask(segs, row_d),
+        "mask (kernel, then the rows over seg/10 zeroed)": lambda: tm.literal_mask(segs, row_d),
         "mask copy": lambda: packed.cpu(),
         "position scan": lambda: nb.mask_positions(mask, n_real),
         "gather and value copy": lambda: tm.gather_values(segs, pos),
@@ -599,16 +813,68 @@ def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
     want = fm.match_nibble_plain(segs, row_d)
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"match kernel vs plain on C's segments {tuple(segs.shape)}")
-    t = {
-        "max_abs_err": int((got.int() - want.int()).abs().max()),
-        "ms": cuda_ms(lambda: kernels.match_nibble(segs, row_d, 16, 8), iters=10),
-        "plain_ms": cuda_ms(lambda: fm.match_nibble_plain(segs, row_d), iters=5, warmup=1),
+    err = int((got.int() - want.int()).abs().max())
+    best_plain = fm.count_best_plain(segs, offsets)
+    check(torch.equal(best, best_plain),
+          f"count kernel vs plain on C's segments {tuple(segs.shape)}")
+    del want
+    # keep the card busy for about 50 ms before timing (see phase_kernels)
+    cuda_ms(lambda: kernels.match_nibble(segs, row_d, 16, 8), iters=100)
+    counts, packed_k = kernels.match_mask(segs, row_d, 16, 8)
+    want_counts, want_packed = fm.literal_mask_plain(segs, row_d)
+    torch.cuda.synchronize()
+    check(torch.equal(packed_k, want_packed) and torch.equal(counts, want_counts),
+          f"match kernel's packed mask and counts vs plain on C's segments")
+    err = max(err, max_abs_diff(packed_k, want_packed), int((counts - want_counts).abs().max()))
+    del want_packed, packed_k
+    fns = {
+        "mask": lambda: kernels.match_mask(segs, row_d, 16, 8),
+        "mask_generic": lambda: kernels.match_mask(segs, row_d, 16, 8, path="generic"),
+        "mask_plain": lambda: fm.literal_mask_plain(segs, row_d),
+        "nibble": lambda: kernels.match_nibble(segs, row_d, 16, 8),
+        "nibble_generic": lambda: kernels.match_nibble(segs, row_d, 16, 8, path="generic"),
+        "nibble_plain": lambda: fm.match_nibble_plain(segs, row_d),
+        "count": lambda: kernels.match_count(segs, offsets),
+        "count_generic": lambda: kernels.match_count(segs, offsets, path="generic"),
+        "count_plain": lambda: fm.count_best_plain(segs, offsets),
     }
-    print(f"match kernel times on C's segments {tuple(segs.shape)} at their offsets: "
-          f"kernel {t['ms']:.4f} ms = {segs.numel() / t['ms'] / 1e6:.1f} GB/s, plain "
-          f"{t['plain_ms']:.4f} ms = {segs.numel() / t['plain_ms'] / 1e6:.1f} GB/s "
-          f"(GB/s of input bytes); equal outputs")
-    return t
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):  # two turns, the second reversed
+        for k in order:
+            plain = k.endswith("plain")
+            runs[k].append(cuda_ms(fns[k], iters=3 if plain else 20, warmup=1 if plain else 3))
+    ms = {k: statistics.mean(v) for k, v in runs.items()}
+    nseg = segs.shape[0]
+    # what the functions must move and do on these inputs: the mask reads
+    # each byte and each row's offset once and writes a bit a byte and a
+    # count a row (packed form, the one path C runs) or a nibble byte per 4
+    # bytes, with one compare and 2 (T - 1) bit operations a position; the
+    # count reads each byte and the offsets once and writes an index a row,
+    # with one compare and one add for each position at or past each offset
+    mask_ops = segs.numel() * (1 + 2 * (fm.MATCH_T - 1))
+    bounds = {
+        "mask": bound(segs.numel() + 4 * nseg + segs.numel() // 8 + 4 * nseg, mask_ops),
+        "nibble": bound(segs.numel() + 4 * nseg + segs.numel() // 4,
+                        mask_ops),
+        "count": bound(segs.numel() + 4 * len(offsets) + 8 * nseg,
+                       2 * nseg * sum(seg - d for d in offsets)),
+    }
+    print(f"match kernel times on C's segments {tuple(segs.shape)} at their offsets, ms as "
+          f"turn 1 / turn 2 (mean of 20 launches each, the plain versions of 3): " + ", ".join(
+              f"{k} {v[0]:.4f} / {v[1]:.4f} = {segs.numel() / statistics.mean(v) / 1e6:.1f} GB/s"
+              for k, v in runs.items())
+          + f" (GB/s of input bytes); equal outputs; bounds: " + ", ".join(
+              f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
+    return {
+        # the kernel in the form path C launches, and in its nibble form
+        "nibble": {"max_abs_err": err, "ms": ms["mask"], "generic_ms": ms["mask_generic"],
+                   "plain_ms": ms["mask_plain"], **bounds["mask"],
+                   "nibble_form": {"ms": ms["nibble"], "generic_ms": ms["nibble_generic"],
+                                   "plain_ms": ms["nibble_plain"], **bounds["nibble"]}},
+        "count": {"max_abs_err": int((best - best_plain).abs().max()), "ms": ms["count"],
+                  "generic_ms": ms["count_generic"], "plain_ms": ms["count_plain"],
+                  **bounds["count"]},
+    }
 
 
 def phase_advisors(tbt, rng, cases) -> dict:
@@ -921,7 +1187,9 @@ def main() -> int:
     frame_c, y_c = run_path_c(tbt, x_c, opts_c)
     launches_c = dict(kernels.launches)
     print(f"main path C, launches: {launches_c}")
-    check(launches_c["match_nibble"] >= 1, "match kernel launched by compress_array(match)")
+    for kernel in ("match_nibble", "match_count"):
+        check(launches_c[kernel] >= 1 and launches_c[f"{kernel}.vec16"] == launches_c[kernel],
+              f"{kernel} launched by compress_array(match), on its vec16 path ({launches_c})")
     check_fast_path("C", launches_c)
     match_c = check_and_time_path_c(tbt, x_c, opts_c, frame_c, y_c)
     del x_c, y_c
@@ -958,8 +1226,11 @@ def main() -> int:
                                  for p in kernels.SHUFFLE_PATHS},
             "max_abs_err": kern["max_abs_err"],
             "ms": t4[key], "plain_ms": t4[f"{key}_plain"],
+            # each byte read once and written once; nothing is computed
+            **bound(2 * 64 * MIB, 0), "library_ms": t4[f"{key}_library"],
             "times": {g: {"path": row["path"], "ms": row[key],
-                          "plain_ms": row[f"{key}_plain"]}
+                          "plain_ms": row[f"{key}_plain"],
+                          "library_ms": row[f"{key}_library"]}
                       for g, row in kern["times"].items()},
         }
 
@@ -973,6 +1244,9 @@ def main() -> int:
             "launches": sum(c[kernel] for c in main_runs),
             "max_abs_err": bit_k["max_abs_err"],
             "ms": t4[key], "plain_ms": t4[f"{key}_plain"],
+            # each byte read once and written once; an 8x8 bit transpose
+            # moves every bit once: 8 operations a byte
+            **bound(2 * 64 * MIB, 8 * 64 * MIB), "library_ms": None,
             "times": {g: {"ms": row[key], "plain_ms": row[f"{key}_plain"],
                           "offset4_ms": row[f"{key}_offset4"]}
                       for g, row in bit_k["times"].items()},
@@ -981,14 +1255,21 @@ def main() -> int:
     probe_entry = {"name": "tpbt_probe_tiles", "route": "cuda", "source": src + "probe.cu",
                    "launches": launches_adv["probe_tiles"],
                    "max_abs_err": probe_k["max_abs_err"],
-                   "ms": probe_k["ms"], "plain_ms": probe_k["plain_ms"]}
+                   "ms": probe_k["ms"], "plain_ms": probe_k["plain_ms"],
+                   # 64 MiB read once (the per-tile sums are 512 bytes); one
+                   # add and one compare a byte
+                   **bound(64 * MIB + 512, 2 * 64 * MIB), "library_ms": None}
     print(json.dumps({"kernels": [
         shuffle_entry("shuffle_blocks", "shuffle", pk + "293"),
         shuffle_entry("unshuffle_blocks", "unshuffle", pk + "315"),
         {"name": "tpbt_match_nibble", "route": "cuda", "source": src + "match.cu",
          "replaces": pk + "463", "launches": launches_c["match_nibble"],
-         "max_abs_err": max(match_k["max_abs_err"], match_c["max_abs_err"]),
-         "ms": match_c["ms"], "plain_ms": match_c["plain_ms"]},
+         **match_c["nibble"], "library_ms": None,
+         "max_abs_err": max(match_k["max_abs_err"], match_c["nibble"]["max_abs_err"])},
+        {"name": "tpbt_match_count", "route": "cuda", "source": src + "match.cu",
+         "replaces": "tpu_blosc/device.py:303", "launches": launches_c["match_count"],
+         **match_c["count"], "library_ms": None,
+         "max_abs_err": max(match_k["count_max_abs_err"], match_c["count"]["max_abs_err"])},
         {**probe_entry, "replaces": pk + "125"},
         {**probe_entry, "replaces": pk + "126"},
         bit_entry("tpbt_bitshuffle_blocks", "bit_shuffle_blocks", "shuffle", 65),

@@ -5,8 +5,10 @@ on the same numpy inputs, after tests/test_device_api.py:228-680.  Match
 frames are not the host encoder's, but they are deterministic, so the
 contract is bytes: the two packages' frames must be equal, and each must
 decode in both.  The literal-mask kernel's plain version is held to the
-Pallas kernel (interpret mode) and to the XLA match core.  Every
-comparison is exact.
+Pallas kernel (interpret mode) and to the XLA match core; the count
+kernel's plain version to a NumPy oracle and to the XLA match core.  The
+CUDA kernels themselves are held to their plain versions on the card by
+chip_smoke.py.  Every comparison is exact.
 
 The JAX frames are computed once per module (interpret-mode Pallas is
 slow).
@@ -335,3 +337,218 @@ def test_match_kernel_wrapper_takes_cuda_tensors_only():
         kernels.match_nibble(segs, d, 16, 8)
     with pytest.raises(ValueError, match="no match-mask route"):
         fm.match_nibble(segs.to("meta"), d.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the count phase: plain version, router, path choice, wrapper refusals
+# ---------------------------------------------------------------------------
+
+
+def _count_oracle(rows: np.ndarray, offsets) -> np.ndarray:
+    """First index of the largest count of p >= d with x[p] == x[p-d]; 0
+    where every count is 0 (np.argmax takes the first maximum)."""
+    counts = np.stack([(rows[:, d:] == rows[:, :-d]).sum(axis=1) for d in offsets], axis=1)
+    return np.argmax(counts, axis=1)
+
+
+def _count_rows(seg: int) -> np.ndarray:
+    """_core_rows plus rows that try the edges of the count: two offsets
+    tied with many pairs each, a pair only at the largest offset, and a
+    periodic row followed by a row that starts with the same bytes."""
+    rng = np.random.default_rng(seg + 1)
+    rows = _core_rows(seg)
+    distinct = np.arange(seg) % 251
+    both = distinct.copy()
+    for p in range(64, seg - 8, 16):  # as many pairs at d = 3 as at d = 8
+        both[p], both[p + 8] = both[p - 3], both[p]
+    far = distinct.copy()
+    d_max = jdev._match_offsets(seg)[-1]
+    far[seg - 1] = far[seg - 1 - d_max]
+    pattern = rng.integers(0, 256, 48, dtype=np.uint8)
+    periodic = np.tile(pattern, seg // 48 + 2)
+    follower = distinct.copy()
+    follower[:48] = periodic[seg: seg + 48]
+    follower[100] = follower[99]
+    return np.concatenate([rows, np.stack([both, far, periodic[:seg], follower]).astype(np.uint8)])
+
+
+@pytest.mark.parametrize("n_offsets", [14, 20])
+@pytest.mark.parametrize("seg", [256, 1024, 4096])
+def test_count_best_plain_equals_oracle_and_xla_core(seg, n_offsets):
+    """count_best_plain, and the router on CPU tensors, against NumPy and
+    against _device_match_core's best, with the 14 offsets below 256 and
+    with every offset below seg."""
+    offs = tuple(d for d in jdev._match_offsets(seg) if n_offsets == 20 or d < 256)
+    rows = _count_rows(seg)
+    want = _count_oracle(rows, offs)
+    best = np.asarray(jdev._device_match_core(jnp.asarray(rows), seg, offs)[1])
+    assert np.array_equal(best, want)
+    for fn in (fm.count_best_plain, fm.count_best):
+        got = fn(torch.from_numpy(rows), offs)
+        assert got.dtype == torch.int64 and got.shape == (rows.shape[0],)
+        assert np.array_equal(got.numpy(), want), fn.__name__
+    assert want[1] == 0 and want[3] == offs.index(2) and want[5] == 0
+    if n_offsets == 20:  # the row whose only pair lies at the largest offset
+        assert want[-3] == len(offs) - 1
+
+
+@pytest.mark.parametrize("kind", ["distinct", "constant", "tie"])
+@pytest.mark.parametrize("seg", [256, 1024, 4096])
+def test_count_best_ties_and_empty_rows(seg, kind):
+    """A row with no equal bytes gets index 0, a constant row d = 1, and
+    of two offsets with the same count the lower index wins, wherever
+    the tied offsets stand in the list."""
+    distinct = (np.arange(seg) % 251).astype(np.uint8)
+    offs = tm.match_offsets(seg)
+    if kind == "distinct":
+        rows, want = distinct[None], [0]
+    elif kind == "constant":
+        rows, want = np.full((1, seg), 9, np.uint8), [0]
+    else:
+        pairs = [(offs[i], offs[j]) for i, j in ((0, 1), (2, 5), (4, len(offs) - 1))]
+        rows = np.stack([distinct] * len(pairs))
+        for row, (lo, hi) in zip(rows, pairs):
+            row[seg // 2] = row[seg // 2 - lo]
+            row[seg - 3] = row[seg - 3 - hi]
+        want = [offs.index(lo) for lo, _ in pairs]
+    got = fm.count_best(torch.from_numpy(rows), offs)
+    assert got.tolist() == want
+    assert _count_oracle(rows, offs).tolist() == want
+
+
+@pytest.mark.parametrize(
+    "seg,segs_off,out_off,want",
+    [
+        (262144, 0, 0, "vec16"),     # a 1 MiB block of float32
+        (65536, 0, 0, "vec16"),      # of 16-byte elements
+        (256, 0, 0, "vec16"),        # the shortest segment compress_array gives
+        (64, 32, 48, "vec16"),
+        (262144, 4, 0, "generic"),   # rows of a view 4 bytes off
+        (262144, 0, 8, "generic"),   # an unaligned output
+        (262144, 1, 1, "generic"),
+        (1000, 0, 0, "generic"),     # seg % 4 == 0 only
+        (349528, 0, 0, "generic"),   # a 1 MiB block of 3-byte elements: seg % 8 == 0
+        (16400, 0, 0, "generic"),    # seg % 16 == 0, not 64
+        (32, 0, 0, "generic"),
+    ],
+)
+def test_match_path_cases(seg, segs_off, out_off, want):
+    base = 1 << 20
+    assert kernels.match_path(seg, base + segs_off, base + out_off) == want
+    if out_off == 0:  # the count kernel's call: no output to align
+        assert kernels.match_path(seg, base + segs_off) == want
+
+
+def test_match_path_takes_vec16_exactly_where_every_precondition_holds():
+    base = 1 << 20
+    for seg in (4, 60, 64, 128, 1000, 4096, 4100, 262144):
+        for a in (0, 1, 4, 12, 16):
+            for b in (0, 4, 32):
+                fits = seg % 64 == 0 and a % 16 == 0 and b % 16 == 0
+                got = kernels.match_path(seg, base + a, base + b)
+                assert got == ("vec16" if fits else "generic"), (seg, a, b)
+
+
+def test_match_constants_equal_the_cuda_source():
+    """The wrappers pass each path as the number csrc/match.cu gives it,
+    and refuse what its launchers refuse."""
+    import os
+    import re
+
+    src = open(os.path.join(kernels.CSRC, "match.cu")).read()
+    enum = re.search(r"enum Path \{([^}]*)\}", src).group(1)
+    numbers = {k.lower(): int(v) for k, v in re.findall(r"k(\w+) = (\d+)", enum)}
+    assert numbers == kernels.MATCH_PATHS
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kMaxOffsets"] == kernels.MATCH_MAX_OFFSETS
+    assert const["kMaxT"] == kernels.MATCH_MAX_T
+    assert kernels.MATCH_MAX_SEG == 2**31 - 1 - 2 * const["kTile"]
+    assert "seg % 64 == 0" in src
+    assert max(tm.match_offsets(1 << 20)) <= const["kHalo"]
+
+
+def test_pick_match_path_takes_match_paths_choice_or_a_known_name():
+    segs = torch.zeros((2, 256), dtype=torch.uint8)
+    assert kernels._pick_match_path(None, segs) == kernels.match_path(256, segs.data_ptr())
+    assert kernels._pick_match_path("generic", segs, 16) == "generic"
+    with pytest.raises(ValueError, match="unknown match path"):
+        kernels._pick_match_path("vec8", segs)
+
+
+@pytest.mark.parametrize(
+    "segs,offsets",
+    [
+        (torch.zeros((2, 256), dtype=torch.int8), (1, 2)),
+        (torch.zeros((2, 512), dtype=torch.uint8)[:, ::2], (1, 2)),
+        (torch.zeros(256, dtype=torch.uint8), (1, 2)),
+        (torch.zeros((2, 258), dtype=torch.uint8), (1, 2)),
+        (torch.zeros((2, 256), dtype=torch.uint8), (1, 256)),
+        (torch.zeros((2, 256), dtype=torch.uint8), (0, 1)),
+        (torch.zeros((2, 256), dtype=torch.uint8), tuple(range(1, 34))),
+        (torch.zeros((2, 256), dtype=torch.uint8), ()),
+        (torch.zeros((2, 256), dtype=torch.uint8), (1.0, 2)),
+    ],
+    ids=["dtype", "strided", "1-D", "seg-not-4", "d-at-seg", "d-0", "33-offsets",
+         "no-offsets", "float-offset"],
+)
+def test_count_best_refuses_bad_arguments(segs, offsets):
+    with pytest.raises(ValueError):
+        fm.count_best(segs, offsets)
+    with pytest.raises(ValueError):
+        kernels.check_count_args(segs, offsets)
+
+
+def test_count_kernel_wrapper_takes_cuda_tensors_only():
+    """A CPU tensor never reaches the CUDA wrapper, and the wrapper
+    refuses one without building anything, whatever the path; another
+    device has no route; no launch is counted."""
+    segs = torch.zeros((2, 256), dtype=torch.uint8)
+    before = dict(kernels.launches)
+    for path in (None, "vec16", "generic"):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.match_count(segs, (1, 2), path=path)
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.match_nibble(segs, torch.ones(2, dtype=torch.int32), 16, 8, path=path)
+    with pytest.raises(ValueError, match="no match-count route"):
+        fm.count_best(segs.to("meta"), (1, 2))
+    assert kernels.launches == before
+    assert {f"{k}.{p}" for k in ("match_nibble", "match_count")
+            for p in kernels.MATCH_PATHS} | {"match_count"} <= set(kernels.launches)
+
+
+def test_match_core_takes_the_router(monkeypatch):
+    """match_core's count phase is filters.match.count_best (the router to
+    the kernel), not a loop of its own."""
+    calls = []
+    real = fm.count_best
+
+    def spy(segs, offsets):
+        calls.append((tuple(segs.shape), offsets))
+        return real(segs, offsets)
+
+    monkeypatch.setattr(fm, "count_best", spy)
+    rows = _core_rows(256)
+    tm.match_core(torch.from_numpy(rows), tm.match_offsets(256))
+    assert calls == [((12, 256), tm.match_offsets(256))]
+    assert not hasattr(tm, "count_best")
+
+
+def test_literal_mask_router_and_wrapper():
+    """literal_mask on CPU tensors is the popcount and pack of the plain
+    nibbles; the CUDA wrapper of the packed form refuses CPU tensors and
+    seg % 8 != 0 without building anything, and counts no launch."""
+    rows = torch.from_numpy(_core_rows(256))
+    d = torch.tensor([1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64], dtype=torch.int32)
+    nib = fm.match_nibble_plain(rows, d)
+    counts, packed = fm.literal_mask(rows, d)
+    lit = torch.stack([(nib >> t) & 1 for t in range(4)], dim=2).reshape(12, 256)
+    assert counts.dtype == torch.int32 and counts.tolist() == lit.sum(dim=1).tolist()
+    assert np.array_equal(np.unpackbits(packed.numpy(), axis=1, bitorder="little"), lit.numpy())
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.match_mask(rows, d, 16, 8)
+    with pytest.raises(ValueError, match="no match-mask route"):
+        fm.literal_mask(rows.to("meta"), d.to("meta"))
+    with pytest.raises(ValueError):
+        fm.literal_mask(rows, d[:3])
+    assert kernels.launches == before

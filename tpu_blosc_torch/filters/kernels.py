@@ -8,7 +8,12 @@ library with a plain C interface:
   (``tpu_blosc/filters/pallas_kernels.py:292-333``), each with two paths
   that ``shuffle_path`` picks between;
 - ``match.cu``: ``tpbt_match_nibble``, replacing
-  ``match_select_open_nibble`` (:343-497);
+  ``match_select_open_nibble`` (:343-497), with ``tpbt_match_mask``, the
+  same kernel writing the packed mask and the rows' literal counts, and
+  ``tpbt_match_count``,
+  replacing the count phase of the XLA match core
+  (``tpu_blosc/device.py:303-335``); each with two paths that
+  ``match_path`` picks between;
 - ``probe.cu``: ``tpbt_probe_tiles``, replacing ``_probe_runs`` and
   ``_probe_bytesum`` (:80-126);
 - ``bitshuffle.cu``: ``tpbt_bitshuffle_blocks`` /
@@ -23,15 +28,16 @@ imported.
 
 Each wrapper takes CUDA tensors only, launches on PyTorch's current
 stream, and raises when the launch is refused.  ``launches`` counts the
-launches of each kernel (and of each shuffle path, as
-``"shuffle_blocks.vec16"`` and the like), so a caller can show that a path
-went through it.  The plain PyTorch versions live in ``filters/batched.py``,
+launches of each kernel (and of each path of the shuffle and match
+kernels, as ``"shuffle_blocks.vec16"`` and the like), so a caller can show
+that a path went through it.  The plain PyTorch versions live in ``filters/batched.py``,
 ``filters/match.py`` and ``filters/probe.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import shutil
@@ -54,15 +60,25 @@ NVCC_FLAGS = [
 # the shuffle pair's paths, as csrc/shuffle.cu numbers them
 SHUFFLE_PATHS = {"generic": 0, "vec16": 1}
 VEC16_TYPE_SIZES = (2, 4, 8, 16)
+# the match kernels' paths, as csrc/match.cu numbers them
+MATCH_PATHS = {"generic": 0, "vec16": 1}
 
 # launches of each kernel since the last reset_launches()
 launches = {"shuffle_blocks": 0, "unshuffle_blocks": 0, "match_nibble": 0,
-            "probe_tiles": 0, "bit_shuffle_blocks": 0, "bit_unshuffle_blocks": 0}
+            "match_count": 0, "probe_tiles": 0, "bit_shuffle_blocks": 0,
+            "bit_unshuffle_blocks": 0}
 launches.update({f"{kernel}.{path}": 0 for kernel in ("shuffle_blocks", "unshuffle_blocks")
                  for path in SHUFFLE_PATHS})
+launches.update({f"{kernel}.{path}": 0 for kernel in ("match_nibble", "match_count")
+                 for path in MATCH_PATHS})
 
-# the match kernel's halo bounds the run length (csrc/match.cu kHalo + 1)
+# the mask kernel's window bounds the run length (csrc/match.cu kMaxT)
 MATCH_MAX_T = 9
+# the count kernel's offsets per launch (csrc/match.cu kMaxOffsets)
+MATCH_MAX_OFFSETS = 32
+# the longest segment the match kernels take (32-bit positions with room
+# for a tile past the row: csrc/match.cu refuse)
+MATCH_MAX_SEG = 2**31 - 1 - 2 * 16384
 # the probe's layout: int32 words per row, rows per 1 MiB tile
 PROBE_LANES = 512
 PROBE_TILE_ROWS = 512
@@ -109,7 +125,9 @@ def lib() -> ctypes.CDLL:
                 for name, argtypes in (
                     ("tpbt_shuffle_blocks", [p, p, i64, i64, i64, ctypes.c_int, p]),
                     ("tpbt_unshuffle_blocks", [p, p, p, i64, i64, i64, ctypes.c_int, p]),
-                    ("tpbt_match_nibble", [p, p, p, i64, i64, i64, i64, p]),
+                    ("tpbt_match_nibble", [p, p, p, i64, i64, i64, i64, ctypes.c_int, p]),
+                    ("tpbt_match_mask", [p, p, p, p, i64, i64, i64, i64, ctypes.c_int, p]),
+                    ("tpbt_match_count", [p, p, p, p, i64, i64, i64, ctypes.c_int, p]),
                     ("tpbt_probe_tiles", [p, i64, p, p]),
                     ("tpbt_bitshuffle_blocks", [p, p, i64, i64, i64, p]),
                     ("tpbt_bitunshuffle_blocks", [p, p, p, i64, i64, i64, p]),
@@ -160,6 +178,37 @@ def shuffle_path(bs: int, type_size: int, src_ptr: int, dst_ptr: int) -> str:
     return "vec16" if ok else "generic"
 
 
+def match_path(seg: int, segs_ptr: int, out_ptr: int = 0) -> str:
+    """The match kernels' path for rows of ``seg`` bytes at these
+    addresses (the count kernel's output needs no alignment: 0):
+    "vec16" where seg is a multiple of 64 and both pointers lie on 16-byte
+    boundaries, "generic" everywhere else.  The launchers check the same
+    conditions and refuse "vec16" where they do not hold."""
+    ok = seg % 64 == 0 and segs_ptr % 16 == 0 and out_ptr % 16 == 0
+    return "vec16" if ok else "generic"
+
+
+def _check_segs(segs: torch.Tensor, least: int) -> None:
+    if segs.dtype != torch.uint8 or segs.dim() != 2 or not segs.is_contiguous():
+        raise ValueError("segs must be a contiguous 2-D uint8 tensor")
+    seg = segs.shape[1]
+    if seg < least or seg % 4 or seg > MATCH_MAX_SEG:
+        raise ValueError(f"segment length {seg} is not a multiple of 4 from {least} "
+                         f"to {MATCH_MAX_SEG}")
+
+
+def check_count_args(segs: torch.Tensor, offsets) -> None:
+    """The geometry every route of the count phase takes: contiguous
+    (nseg, seg) uint8 with seg % 4 == 0, and 1 to 32 integer offsets d
+    with 1 <= d < seg."""
+    _check_segs(segs, 4)
+    seg = segs.shape[1]
+    if not 1 <= len(offsets) <= MATCH_MAX_OFFSETS:
+        raise ValueError(f"need 1 to {MATCH_MAX_OFFSETS} offsets, got {len(offsets)}")
+    if not all(isinstance(d, int) and 1 <= d < seg for d in offsets):
+        raise ValueError(f"every offset must be an int d with 1 <= d < {seg}, got {offsets}")
+
+
 def check_match_args(segs: torch.Tensor, row_d: torch.Tensor, tail: int,
                      T: int) -> None:
     """The geometry every route takes: contiguous (nseg, seg) uint8 with
@@ -167,11 +216,8 @@ def check_match_args(segs: torch.Tensor, row_d: torch.Tensor, tail: int,
     device, ``tail >= 0`` and ``1 <= T <= 9``."""
     if tail < 0 or not 1 <= T <= MATCH_MAX_T:
         raise ValueError(f"need tail >= 0 and 1 <= T <= {MATCH_MAX_T}, got {tail}, {T}")
-    if segs.dtype != torch.uint8 or segs.dim() != 2 or not segs.is_contiguous():
-        raise ValueError("segs must be a contiguous 2-D uint8 tensor")
-    nseg, seg = segs.shape
-    if seg < max(T, 4) or seg % 4:
-        raise ValueError(f"segment length {seg} is not a multiple of 4 of at least {max(T, 4)}")
+    _check_segs(segs, max(T, 4))
+    nseg = segs.shape[0]
     if row_d.dtype != torch.int32 or row_d.shape != (nseg,) or not row_d.is_contiguous():
         raise ValueError(f"row_d must be a contiguous int32 tensor of shape ({nseg},)")
     if row_d.device != segs.device:
@@ -223,6 +269,22 @@ def _raise_if_failed(rc: int, name: str) -> None:
 def _require_cuda(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {t.device}")
+
+
+@functools.lru_cache(maxsize=32)
+def offsets_tensor(offsets: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``offsets`` as an int32 tensor on ``device``, made once for each
+    list and device: copying a list to the card makes the host wait for
+    the stream."""
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+def _pick_match_path(path: str | None, segs: torch.Tensor, out_ptr: int = 0) -> str:
+    if path is None:
+        return match_path(segs.shape[1], segs.data_ptr(), out_ptr)
+    if path not in MATCH_PATHS:
+        raise ValueError(f"unknown match path {path!r}; expected one of {list(MATCH_PATHS)}")
+    return path
 
 
 def _pick_path(path: str | None, blocks: torch.Tensor, type_size: int,
@@ -326,24 +388,82 @@ def bit_unshuffle_blocks(blocks: torch.Tensor, type_size: int,
 
 
 def match_nibble(segs: torch.Tensor, row_d: torch.Tensor, tail: int,
-                 T: int) -> torch.Tensor:
+                 T: int, path: str | None = None) -> torch.Tensor:
     """Literal-mask nibbles of a CUDA (nseg, seg) uint8 tensor at each
     row's offset ``row_d`` (a (nseg,) int32 CUDA tensor): an (nseg,
-    seg/4) uint8 tensor whose byte j holds bit t = byte 4j+t is literal."""
+    seg/4) uint8 tensor whose byte j holds bit t = byte 4j+t is literal.
+    On the path ``match_path`` picks unless ``path`` names one."""
     _require_cuda(segs)
     check_match_args(segs, row_d, tail, T)
     nseg, seg = segs.shape
     out = torch.empty((nseg, seg // 4), dtype=torch.uint8, device=segs.device)
     if nseg == 0:
         return out
+    path = _pick_match_path(path, segs, out.data_ptr())
     with torch.cuda.device(segs.device):
         rc = lib().tpbt_match_nibble(
             segs.data_ptr(), row_d.data_ptr(), out.data_ptr(), nseg, seg,
-            tail, T, torch.cuda.current_stream().cuda_stream,
+            tail, T, MATCH_PATHS[path], torch.cuda.current_stream().cuda_stream,
         )
-    _raise_if_failed(rc, "tpbt_match_nibble")
+    _raise_if_failed(rc, f"tpbt_match_nibble ({path} path)")
     launches["match_nibble"] += 1
+    launches[f"match_nibble.{path}"] += 1
     return out
+
+
+def match_mask(segs: torch.Tensor, row_d: torch.Tensor, tail: int, T: int,
+               path: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lit_counts, packed) of the same mask, by the same kernel, in the
+    form the match strategy ships: each row's literal count (int32), and
+    (nseg, seg/8) bytes whose byte j holds bit i = byte 8j+i is literal.
+    seg must be a multiple of 8.  Counted as a launch of ``match_nibble``."""
+    _require_cuda(segs)
+    check_match_args(segs, row_d, tail, T)
+    nseg, seg = segs.shape
+    if seg % 8:
+        raise ValueError(f"the packed mask holds 8 bytes a bit-byte; seg={seg} % 8 != 0")
+    packed = torch.empty((nseg, seg // 8), dtype=torch.uint8, device=segs.device)
+    lit_counts = torch.zeros((nseg,), dtype=torch.int32, device=segs.device)
+    if nseg == 0:
+        return lit_counts, packed
+    path = _pick_match_path(path, segs, packed.data_ptr())
+    with torch.cuda.device(segs.device):
+        rc = lib().tpbt_match_mask(
+            segs.data_ptr(), row_d.data_ptr(), packed.data_ptr(), lit_counts.data_ptr(),
+            nseg, seg, tail, T, MATCH_PATHS[path], torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, f"tpbt_match_mask ({path} path)")
+    launches["match_nibble"] += 1
+    launches[f"match_nibble.{path}"] += 1
+    return lit_counts, packed
+
+
+def match_count(segs: torch.Tensor, offsets: tuple[int, ...],
+                path: str | None = None) -> torch.Tensor:
+    """Per row of a CUDA (nseg, seg) uint8 tensor, the index into
+    ``offsets`` of the offset d with the most p >= d where x[p] ==
+    x[p-d], as an int64 tensor: the lowest such index, and 0 for a row
+    with no equal bytes.  On the path ``match_path`` picks unless
+    ``path`` names one."""
+    _require_cuda(segs)
+    check_count_args(segs, offsets)
+    nseg, seg = segs.shape
+    best = torch.empty((nseg,), dtype=torch.int64, device=segs.device)
+    if nseg == 0:
+        return best
+    path = _pick_match_path(path, segs)
+    offs = offsets_tensor(tuple(offsets), segs.device)
+    counts = torch.zeros((nseg, len(offsets)), dtype=torch.int32, device=segs.device)
+    with torch.cuda.device(segs.device):
+        rc = lib().tpbt_match_count(
+            segs.data_ptr(), offs.data_ptr(), counts.data_ptr(), best.data_ptr(),
+            nseg, seg, len(offsets), MATCH_PATHS[path],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, f"tpbt_match_count ({path} path)")
+    launches["match_count"] += 1
+    launches[f"match_count.{path}"] += 1
+    return best
 
 
 def probe_tiles(words: torch.Tensor) -> torch.Tensor:

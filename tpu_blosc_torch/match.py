@@ -14,8 +14,9 @@ Each full block is filtered on the tensor's device with the pair
 ``opts.shuffle`` names (byte or bit shuffle) and seen as ts segments of
 seg = bs/ts bytes (under byte shuffle, one byte plane each).  Per segment the
 device picks the candidate offset d with the most equal bytes x[p] ==
-x[p-d] (the count phase, torch ops), then builds the literal mask by an
-opening of the equality runs (the match kernel, filters/match.py).
+x[p-d] (the count kernel), then builds the literal mask by an opening of
+the equality runs (the mask kernel; both in filters/match.py, over
+csrc/match.cu).
 Segments with at most seg/10 literals are "sparse": only their literal
 positions and bytes cross to the host.  The host writes an LZ4 stream
 straight from the records for blocks whose segments are all sparse, and
@@ -54,22 +55,6 @@ def match_offsets(seg: int) -> tuple[int, ...]:
     )
 
 
-def count_best(segs: torch.Tensor, offsets: tuple[int, ...]) -> torch.Tensor:
-    """Per row of ``segs`` (nseg, seg), the index into ``offsets`` of the
-    offset d with the most p >= d where x[p] == x[p-d], as an int64
-    tensor.  Ties go to the lowest index; a row with no equal bytes gets
-    index 0."""
-    nseg = segs.shape[0]
-    best_c = torch.zeros(nseg, dtype=torch.int32, device=segs.device)
-    best_i = torch.zeros(nseg, dtype=torch.int64, device=segs.device)
-    for i, d in enumerate(offsets):
-        c = (segs[:, d:] == segs[:, :-d]).sum(dim=1, dtype=torch.int32)
-        better = c > best_c
-        best_c = torch.where(better, c, best_c)
-        best_i = torch.where(better, i, best_i)
-    return best_i
-
-
 def literal_mask(segs: torch.Tensor, row_d: torch.Tensor):
     """(lit_counts, packed) of ``segs`` at the offsets ``row_d``:
     lit_counts[r] is row r's literal count (int32), and packed (nseg,
@@ -81,10 +66,7 @@ def literal_mask(segs: torch.Tensor, row_d: torch.Tensor):
         # TypeError; compress_array never gives it (blocks are a
         # multiple of 8 * ts)
         raise TypeError(f"the match mask packs 8 bytes a bit-byte; seg={seg} % 8 != 0")
-    nib = _fmatch.match_nibble(segs, row_d)
-    ones = (nib & 1) + ((nib >> 1) & 1) + ((nib >> 2) & 1) + ((nib >> 3) & 1)
-    lit_counts = ones.sum(dim=1, dtype=torch.int32)
-    packed = nib[:, 0::2] | (nib[:, 1::2] << 4)
+    lit_counts, packed = _fmatch.literal_mask(segs, row_d)
     packed.masked_fill_((lit_counts > seg // 10)[:, None], 0)
     return lit_counts, packed
 
@@ -92,8 +74,8 @@ def literal_mask(segs: torch.Tensor, row_d: torch.Tensor):
 def match_core(segs: torch.Tensor, offsets: tuple[int, ...]):
     """(best, lit_counts, packed) of filtered segments, as
     ``_device_match_core`` returns them (without the segments)."""
-    best = count_best(segs, offsets)
-    offs = torch.tensor(offsets, dtype=torch.int32, device=segs.device)
+    best = _fmatch.count_best(segs, offsets)
+    offs = _fmatch.kernels.offsets_tensor(tuple(offsets), segs.device)
     return (best, *literal_mask(segs, offs[best]))
 
 
