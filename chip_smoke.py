@@ -41,6 +41,21 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
      raw rows; sources 1 and 4 bytes off a 16-byte boundary; each wrapper
      and each launcher refusing bs % (8 ts) != 0.  Timed at (64, 1 MiB)
      for type sizes 2, 4 and 8, aligned and on a view 4 bytes off;
+   - the rle strategy's two kernels (run counts, run records), each on
+     both of its paths and on views 4 bytes off a 16-byte boundary, at seg
+     256, 1000, 4096, 18440 and 262144: random rows, small-alphabet rows,
+     a start at every byte, rows of one run side by side (a row that ends
+     with the byte the next begins with), runs that straddle the tile
+     edges, rows picked out of order and twice; counts off by one must
+     raise; each launcher refusing what it does not take (and, in step 8,
+     path G's own (1024, 262144) segments, where both are timed);
+   - the fill kernel of the records decode, on both of its paths and into
+     a view 4 bytes off, at the same five seg: offsets 1, 3, 48, 96, 1024,
+     7, 250, 255 and 256 (most divide no seg), a row of 30% literals, a
+     row whose only literals are its first d bytes, a row with no record,
+     and one (1, 2**24) row at d = 1; the launcher and the wrapper
+     refusing what they do not take (and, in step 9, path H's own
+     records, where it is timed);
 3. main path A: a 64 MiB float32 ramp, LZ4 level 5, byte shuffle;
 4. main path B: 64 MB of float64 signal, ZSTD level 5, byte shuffle,
    with one 1 MiB block of random bytes (memcpy fallback) and a ragged
@@ -53,13 +68,23 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
    of 5 elements;
 7. main path C: 256 MiB of tiled float32 with 1% noise (bench.py's match
    data), LZ4 level 5, 1 MiB blocks, compress_array(strategy="match");
-8. main path F: a checkpoint of GPT-2 medium's 292 parameter tensors
-   (354.8 M bfloat16 values, N(0, 0.02) from the seed, made on the card)
-   through save_pytree (LZ4 level 5, byte shuffle), load_pytree onto the
-   card (the transfer and the device strategy) and load_leaf, in a
-   temporary directory;
-9. suggest_codec and suggest_options on A's, B's and random bytes;
-10. prints the kernels' JSON line (each kernel's launches on the main
+8. main path G: 256 MiB of int32, a staircase (arange // 64) whose every
+   odd 1 MiB block has its low byte replaced by random bytes from the
+   seed, LZ4 level 5, byte shuffle, compress_array(strategy="rle"): the
+   even blocks have four run-sparse byte planes (the emitter writes them
+   from run records), the odd ones three and a dense one (gathered,
+   rebuilt on the host, re-encoded);
+9. main path H: decompress_array(strategy="records") of path C's match
+   frame and of the host encoder's frame of the same tensor;
+10. main path F: a checkpoint of GPT-2 medium's 292 parameter tensors
+    (354.8 M bfloat16 values, N(0, 0.02) from the seed, made on the card)
+    through save_pytree (LZ4 level 5, byte shuffle), load_pytree onto the
+    card (the transfer and the device strategy) and load_leaf, in a
+    temporary directory; then, for H, load_pytree(device=True,
+    strategy="records") of a checkpoint of one of F's leaves and 64 MiB
+    of C's tensor;
+11. suggest_codec and suggest_options on A's, B's and random bytes;
+12. prints the kernels' JSON line (each kernel's launches on the main
     paths, its time, its plain version's, the time of the one PyTorch call
     that computes the same function where there is one, and the least
     time the card could take: see ``bound``) and, last, the ok line.
@@ -71,12 +96,18 @@ exactly.  Path C's frame must differ from the transfer frame (the
 emitter engaged), decode to the tensor on the host and through
 decompress_array(strategy="device"), and equal, on a 16 MiB slice, the
 frame the CPU route (the kernels' plain versions) writes; so must E's
-match frame on a 16 MiB slice.  F's file must equal the one save_pytree
+match frame on a 16 MiB slice.  G's frame must differ from the transfer
+frame, decode to the tensor on the host and through
+decompress_array(strategy="device"), and equal the CPU route's on a 16 MiB
+slice.  H's tensors must equal C's tensor and the transfer decode, and
+the checkpoint's leaves must come back exactly, the dense one by the
+transfer route.  F's file must equal the one save_pytree
 writes from the same tree on the CPU, and every load must give every
 leaf back exactly.  Every kernel must be launched by the path it serves
 (A, B and C the shuffle pair on its vec16 path, C the mask and the count
 kernel of the match strategy on theirs, D and E the bit-shuffle pair, F
-the shuffle pair): the launch counts are reset just before each
+the shuffle pair, G the shuffle kernel, the run-count and the run-record
+kernel, H the fill and the unshuffle kernel): the launch counts are reset just before each
 path and read just after.  Any failure raises, so the script exits
 non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
@@ -1140,6 +1171,542 @@ def check_path_f(tbt, state, opts, path, loads, leaf, t_save, t_loads, workdir) 
           f"save_pytree of the tree moved to the CPU {t_cpu:.3f} s (moves not timed)")
 
 
+def rle_rows(rng, seg: int, nrand: int) -> np.ndarray:
+    """Rows that try the rle kernels' edges: random bytes, a small
+    alphabet, a staircase, a start at every byte, two rows of one run
+    each, side by side (the first ends with the byte the second begins
+    with), runs that straddle the tile edges of both kernels (4096 and
+    16384), and a one-byte run at the row's end."""
+    rows = [rng.integers(0, 256, seg, dtype=np.uint8) for _ in range(nrand)]
+    rows += [rng.integers(0, 2, seg, dtype=np.uint8) for _ in range(nrand)]
+    rows.append((np.arange(seg) // 64).astype(np.uint8))
+    rows.append((np.arange(seg) % 2).astype(np.uint8))
+    rows += [np.full(seg, 7, np.uint8), np.full(seg, 7, np.uint8)]
+    edge = np.zeros(seg, np.uint8)
+    for t in (4096, 3 * 4096, 16384):
+        if t + 5 < seg:
+            edge[t - 3: t + 5] = 9
+    last = np.zeros(seg, np.uint8)
+    last[-1] = 1
+    return np.stack(rows + [edge, last])
+
+
+def row_bases(counts: np.ndarray) -> np.ndarray:
+    """Each row's first record, and one entry more: the exclusive sum."""
+    bases = np.zeros(counts.size + 1, dtype=np.int64)
+    np.cumsum(counts, out=bases[1:])
+    return bases
+
+
+def check_rle_refusals(rng) -> None:
+    """Each rle launcher, handed a path whose preconditions fail or
+    arguments out of range, returns cudaErrorInvalidValue, which the
+    wrapper raises, and counts no launch."""
+    from tpu_blosc_torch.filters import kernels
+
+    aligned = torch.from_numpy(rng.integers(0, 4, (8, 4096), dtype=np.uint8)).to(DEVICE)
+    cases = {
+        "rows 4 bytes off": off_by_4(aligned),
+        "seg 1000": aligned.view(-1)[: 8 * 1000].view(8, 1000),
+    }
+    rows = torch.arange(8, dtype=torch.int64, device=DEVICE)
+    bases = torch.arange(9, dtype=torch.int64, device=DEVICE) * 4096
+    for what, x in cases.items():
+        before = dict(kernels.launches)
+        for name, fn in (("seg_run_counts", lambda: kernels.seg_run_counts(x, path="vec16")),
+                         ("rows_rle", lambda: kernels.rows_rle(x, rows, bases, 8 * 4096,
+                                                               path="vec16"))):
+            try:
+                fn()
+            except RuntimeError as e:
+                check("CUDA error 1" in str(e), f"{name} refusal names the error: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke check failed: {name} took path vec16 at {what}")
+        check(kernels.launches == before, f"a refused rle launch was counted ({what})")
+    lib = kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = torch.zeros(8, dtype=torch.int32, device=DEVICE)
+    vals = torch.empty(8 * 4096, dtype=torch.uint8, device=DEVICE)
+    lens = torch.empty(8 * 4096, dtype=torch.int32, device=DEVICE)
+    ptr = aligned.data_ptr()
+    rcs = {
+        "seg 0": lib.tpbt_seg_run_counts(ptr, counts.data_ptr(), 8, 0, 0, stream),
+        "seg 2**31": lib.tpbt_seg_run_counts(ptr, counts.data_ptr(), 1, 2**31, 0, stream),
+        "path 2": lib.tpbt_seg_run_counts(ptr, counts.data_ptr(), 8, 4096, 2, stream),
+        "no counts": lib.tpbt_seg_run_counts(ptr, None, 8, 4096, 1, stream),
+        "k < 0": lib.tpbt_rows_rle(ptr, rows.data_ptr(), bases.data_ptr(), vals.data_ptr(),
+                                   lens.data_ptr(), counts.data_ptr(), 8, 4096, -1, 1, stream),
+        "no flag": lib.tpbt_rows_rle(ptr, rows.data_ptr(), bases.data_ptr(), vals.data_ptr(),
+                                     lens.data_ptr(), None, 8, 4096, 8, 1, stream),
+    }
+    check(set(rcs.values()) == {1}, f"the rle launchers refuse bad arguments: {rcs}")
+    print(f"kernels: both rle launchers refuse path vec16 at {', '.join(cases)}, "
+          f"and {', '.join(rcs)}")
+
+
+def phase_rle_kernels(rng) -> dict:
+    """The run-count and the run-record kernel against their plain
+    versions at five segment lengths, each on both paths and on a view 4
+    bytes off a 16-byte boundary; returns the largest errors."""
+    from tpu_blosc_torch.filters import kernels, rle as fr
+
+    worst = {"counts": 0, "rows": 0}
+    kernels.reset_launches()
+    for seg in (256, 1000, 4096, 18440, 262144):
+        segs = torch.from_numpy(rle_rows(rng, seg, 8 if seg < 262144 else 3)).to(DEVICE)
+        nseg = segs.shape[0]
+        want_counts = fr.seg_run_counts_plain(segs)
+        counts = want_counts.cpu().numpy().astype(np.int64)
+        # every row out of order, then the two one-run rows side by side
+        ones = np.flatnonzero(counts == 1)
+        pick = np.concatenate([rng.permutation(nseg), ones]).astype(np.int64)
+        bases = row_bases(counts[pick])
+        rows_t = torch.from_numpy(pick).to(DEVICE)
+        bases_t = torch.from_numpy(bases).to(DEVICE)
+        want_vals, want_lens = fr.rows_rle_plain(segs, rows_t)
+        check(want_vals.numel() == bases[-1], f"seg={seg}: the plain records are the counts' sum")
+        picked = kernels.rle_path(seg, segs.data_ptr())
+        for x, path in ((segs, None), (segs, "generic"), (off_by_4(segs), None)):
+            took = "generic" if path or x is not segs else picked
+            before = dict(kernels.launches)
+            got = kernels.seg_run_counts(x, path=path)
+            vals, lens, bad = kernels.rows_rle(x, rows_t, bases_t, int(bases[-1]), path=path)
+            torch.cuda.synchronize()
+            for kernel in ("seg_run_counts", "rows_rle"):
+                check(kernels.launches[f"{kernel}.{took}"] == before[f"{kernel}.{took}"] + 1,
+                      f"{kernel} took the {took} path, seg={seg}")
+            worst["counts"] = max(worst["counts"], int((got - want_counts).abs().max()))
+            check(got.dtype == torch.int32 and torch.equal(got, want_counts),
+                  f"run-count kernel ({took}) vs plain, seg={seg}")
+            worst["rows"] = max(worst["rows"], max_abs_diff(vals, want_vals),
+                                int((lens - want_lens).abs().max()))
+            check(int(bad) == 0 and torch.equal(vals, want_vals) and torch.equal(lens, want_lens),
+                  f"run-record kernel ({took}) vs plain, seg={seg}")
+        # through the wrapper that takes the host's rows and counts; and
+        # counts that are not the rows' own, which the kernel must notice
+        vals, lens = fr.rows_rle(segs, pick, counts[pick])
+        check(torch.equal(vals, want_vals) and torch.equal(lens, want_lens),
+              f"rows_rle wrapper vs plain, seg={seg}")
+        for delta in (1, -1):
+            wrong = counts[pick].copy()
+            wrong[1] += delta
+            if wrong[1] < 0:
+                continue
+            try:
+                fr.rows_rle(segs, pick, wrong)
+            except RuntimeError as e:
+                check("disagree" in str(e), f"rows_rle names the disagreement: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke check failed: rows_rle took counts off by {delta}")
+        print(f"rle kernels: seg={seg}, {nseg} rows, {int(bases[-1])} runs of {pick.size} picked "
+              f"rows: counts and records equal to the plain versions on both paths and 4 bytes "
+              f"off alignment; counts off by one raise")
+    taken = dict(kernels.launches)
+    for kernel in ("seg_run_counts", "rows_rle"):
+        check(all(taken[f"{kernel}.{path}"] >= 1 for path in kernels.RLE_PATHS),
+              f"{kernel} ran on both paths ({taken})")
+    check_rle_refusals(rng)
+    return {"counts_max_abs_err": worst["counts"], "rows_max_abs_err": worst["rows"]}
+
+
+def fill_tensors(pos: np.ndarray, vals: np.ndarray, row_d: np.ndarray, nseg: int, seg: int):
+    """(pos, vals, row_first, row_d) on the card, as kernels.match_fill
+    takes them."""
+    row_first = np.searchsorted(pos, np.arange(nseg + 1, dtype=np.int64) * seg).astype(np.int64)
+    return [torch.from_numpy(a).to(DEVICE) for a in (pos, vals, row_first, row_d)]
+
+
+def fill_case(rng, seg: int, offsets) -> tuple:
+    """Literal records of one row per offset (its first d bytes and 1% of
+    the rest literal; the first row 30%, so that a tile holds more records
+    than the block places at once), a row whose only literals are its
+    first d bytes, and a row with no record at all."""
+    nrows = len(offsets) + 2
+    row_d = np.array(list(offsets) + [offsets[-1], offsets[0]], dtype=np.int32)
+    lit = rng.random((nrows, seg)) < 0.01
+    lit[0] = rng.random(seg) < 0.3
+    for r, d in enumerate(offsets):
+        lit[r, :d] = True
+    lit[-2:] = False
+    lit[-2, : row_d[-2]] = True
+    pos = np.flatnonzero(lit).astype(np.int32)
+    return pos, rng.integers(0, 256, pos.size, dtype=np.uint8), row_d, nrows
+
+
+def phase_fill_kernel(rng) -> dict:
+    """The fill kernel against its plain version at five segment lengths
+    and one (1, 2**24) row at d = 1, on both paths and into a view 4 bytes
+    off a 16-byte boundary; returns the largest error."""
+    from tpu_blosc_torch.filters import fill as ff, kernels
+
+    worst = 0
+    kernels.reset_launches()
+
+    def compare(pos, vals, row_d, nseg, seg, what):
+        nonlocal worst
+        args = fill_tensors(pos, vals, row_d, nseg, seg)
+        want = ff.match_fill_plain(args[0], args[1], args[3], nseg, seg)
+        buf = torch.empty(nseg * seg + 16, dtype=torch.uint8, device=DEVICE)
+        off = buf[4: 4 + nseg * seg].view(nseg, seg)
+        picked = kernels.fill_path(seg, want.data_ptr())
+        for out, path in ((None, None), (None, "generic"), (off, None)):
+            took = "generic" if path or out is not None else picked
+            before = dict(kernels.launches)
+            got = kernels.match_fill(*args, nseg, seg, out=out, path=path)
+            torch.cuda.synchronize()
+            check(kernels.launches[f"match_fill.{took}"] == before[f"match_fill.{took}"] + 1,
+                  f"fill kernel took the {took} path, {what}")
+            worst = max(worst, max_abs_diff(got, want))
+            check(torch.equal(got, want), f"fill kernel ({took}) vs plain, {what}")
+        got = ff.match_fill(pos, vals, row_d, nseg, seg, DEVICE)
+        check(torch.equal(got, want), f"match_fill wrapper vs plain, {what}")
+
+    for seg in (256, 1000, 4096, 18440, 262144):
+        # 3, 48 and 96 divide none of these; 7 and 250 are no candidates
+        offsets = [d for d in (1, 3, 48, 96, 1024, 7, 250, 256, 255) if d < seg]
+        pos, vals, row_d, nrows = fill_case(rng, seg, offsets)
+        compare(pos, vals, row_d, nrows, seg, f"seg={seg}")
+        print(f"fill kernel: seg={seg}, {nrows} rows at d={row_d.tolist()}, {pos.size} records "
+              f"(one row with only its first d bytes literal, one with none): equal to the "
+              f"plain version on both paths and into a view 4 bytes off alignment")
+    seg = 1 << 24
+    pos = np.unique(np.concatenate([[0], rng.choice(seg, 1000, replace=False),
+                                    [seg - 1]])).astype(np.int32)
+    vals = rng.integers(0, 256, pos.size, dtype=np.uint8)
+    compare(pos, vals, np.ones(1, np.int32), 1, seg, "(1, 2**24) at d = 1")
+    print(f"fill kernel: one row of 2**24 bytes at d = 1, {pos.size} records: equal to the "
+          f"plain version (2**24 steps down one column: no key to overflow)")
+    check(all(kernels.launches[f"match_fill.{path}"] >= 1 for path in kernels.FILL_PATHS),
+          f"match_fill ran on both paths ({kernels.launches})")
+
+    # refusals: the wrapper for offsets and positions out of range, the
+    # launcher for a path that does not fit and geometry it does not take
+    args = fill_tensors(*fill_case(rng, 1000, [1, 3])[:3], 4, 1000)
+    before = dict(kernels.launches)
+    try:
+        kernels.match_fill(*args, 4, 1000, path="vec16")
+    except RuntimeError as e:
+        check("CUDA error 1" in str(e), f"match_fill refusal names the error: {e}")
+    else:
+        raise RuntimeError("chip_smoke check failed: match_fill took path vec16 at seg 1000")
+    for bad_d in (0, kernels.FILL_MAX_D + 1):
+        try:
+            ff.match_fill(np.zeros(1, np.int32), np.zeros(1, np.uint8),
+                          np.full(2, bad_d, np.int32), 2, 4096, DEVICE)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError(f"chip_smoke check failed: match_fill took d = {bad_d}")
+    lib = kernels.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(4 * 1000, dtype=torch.uint8, device=DEVICE)
+    ptrs = [a.data_ptr() for a in args]
+    rcs = {
+        "seg 0": lib.tpbt_match_fill(*ptrs, out.data_ptr(), 4, 0, 0, stream),
+        "2**31 bytes": lib.tpbt_match_fill(*ptrs, out.data_ptr(), 2**15, 2**16, 0, stream),
+        "path 2": lib.tpbt_match_fill(*ptrs, out.data_ptr(), 4, 1000, 2, stream),
+        "no out": lib.tpbt_match_fill(*ptrs, None, 4, 1000, 0, stream),
+    }
+    check(set(rcs.values()) == {1}, f"the fill launcher refuses bad arguments: {rcs}")
+    check(kernels.launches == before, "a refused fill launch was counted")
+    print(f"kernels: the fill launcher refuses path vec16 at seg 1000, and {', '.join(rcs)}; "
+          f"the wrapper refuses d = 0 and d = {kernels.FILL_MAX_D + 1}")
+    return {"max_abs_err": worst}
+
+
+def rle_data() -> torch.Tensor:
+    """256 MiB of int32 on the card, for 1 MiB blocks: a staircase
+    (arange // 64: 4096 runs in a block's low byte plane, a few in the
+    others), and in every odd block the low byte replaced by random bytes
+    from the seed (one dense plane, three run-sparse ones)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 6)
+    n_el = 64 * MIB
+    per_block = MIB // 4
+    x = (torch.arange(n_el, dtype=torch.int32, device=DEVICE) // 64).view(-1, per_block)
+    noise = torch.randint(0, 256, (x.shape[0] // 2, per_block), dtype=torch.int32,
+                          device=DEVICE, generator=gen)
+    x[1::2] = (x[1::2] & ~0xFF) | noise
+    return x.view(-1)
+
+
+def run_path_g(tbt, x, opts):
+    frame = tbt.compress_array(x, opts, strategy="rle")
+    y = tbt.decompress_array(frame, x.dtype, device=DEVICE, strategy="device")
+    torch.cuda.synchronize()
+    return frame, y
+
+
+def time_turns(fns: dict) -> tuple[dict, dict]:
+    """Time each function in two turns, the second in reverse order (the
+    plain versions and the library calls 3 launches after 1, the kernels
+    20 after 3); returns (the runs, their means)."""
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            slow = k.endswith(("plain", "library"))
+            runs[k].append(cuda_ms(fns[k], iters=3 if slow else 20, warmup=1 if slow else 3))
+    return runs, {k: statistics.mean(v) for k, v in runs.items()}
+
+
+def check_and_time_path_g(tbt, x, opts, frame, y) -> dict:
+    """Check path G's result and time it beside the transfer route and
+    stage by stage; returns, for the run-count and the run-record kernel,
+    the kernel's, its plain version's and the library call's times, the
+    largest difference and the bound on the path's own segments."""
+    from tpu_blosc_torch import chunk, device as dev, match as tm, rle as tr
+    from tpu_blosc_torch.filters import kernels, rle as fr
+
+    host_bytes = x.cpu().numpy().tobytes()
+    transfer = tbt.compress_array(x, opts)
+    check(frame != transfer, "G: the rle frame differs from the transfer frame")
+    check(tbt.decompress(frame) == host_bytes, "G: host decode of the rle frame")
+    check(torch.equal(y, x), "G: decompress_array(strategy='device') gives x")
+    part = x[: 4 * MIB]
+    check(tbt.compress_array(part, opts, strategy="rle")
+          == tbt.compress_array(part.cpu(), opts, strategy="rle"),
+          "G: the CUDA route's frame equals the CPU route's on 16 MiB")
+
+    n = x.numel() * 4
+    gb = n / 1e9
+    t_r = host_s(lambda: tbt.compress_array(x, opts, strategy="rle"), reps=3)
+    t_t = host_s(lambda: tbt.compress_array(x, opts), reps=3)
+    t_d = host_s(lambda: tbt.decompress_array(frame, x.dtype, device=DEVICE,
+                                              strategy="device"), reps=3)
+    print(f"G i32 staircase, every odd block with a random low byte, LZ4 rle: {n} bytes, ratio "
+          f"{n / len(frame):.2f} (transfer frame {n / len(transfer):.2f}); medians of 3: "
+          f"compress_array(rle) {gb / t_r:.3f} GB/s ({t_r * 1e3:.3f} ms), "
+          f"compress_array(transfer) {gb / t_t:.3f} GB/s ({t_t * 1e3:.3f} ms), "
+          f"decompress_array(device) of the rle frame {gb / t_d:.3f} GB/s ({t_d * 1e3:.3f} ms)")
+
+    # the stages of compress_array_rle, run one by one
+    bs, ts = opts.block_size, 4
+    seg, nb_full = bs // ts, n // bs
+    nseg = nb_full * ts
+    blocks = dev.tensor_bytes(x).view(nb_full, bs)
+    segs = tbt.filters.shuffle_blocks(blocks, ts).view(nseg, seg)
+    counts_d = fr.seg_run_counts(segs)
+    counts = counts_d.cpu().numpy().astype(np.int64)
+    sparse = tr.sparse_rows(counts, seg)
+    sparse_idx, dense_idx = np.flatnonzero(sparse), np.flatnonzero(~sparse)
+    check(sparse_idx.size == 7 * nseg // 8 and dense_idx.size == nseg // 8,
+          f"G: 7/8 of the segments are sparse ({sparse_idx.size} of {nseg})")
+    vals_d, lens_d = fr.rows_rle(segs, sparse_idx, counts[sparse_idx])
+    vals, lens, rec_first = tr.run_records(segs, sparse_idx, counts)
+    dense = tm.gather_rows(segs, dense_idx)
+    payloads, entries, rest = tr.emit_sparse_blocks(bs, nb_full, ts, sparse, sparse_idx, vals,
+                                                    lens, rec_first)
+    check(len(rest) == nb_full // 2, f"G: the emitter wrote the even blocks ({len(rest)} left)")
+    rebuilt = tr.rebuild_blocks(rest, ts, seg, sparse, sparse_idx, vals, lens, rec_first,
+                                dense_idx, dense)
+    tr.encode_blocks(opts, bs, rest, rebuilt, payloads, entries)
+    stages = {
+        "shuffle kernel": lambda: tbt.filters.shuffle_blocks(blocks, ts),
+        "count kernel": lambda: fr.seg_run_counts(segs),
+        "counts copy": lambda: counts_d.cpu(),
+        "rows kernel (with its upload and the check of its flag)":
+            lambda: fr.rows_rle(segs, sparse_idx, counts[sparse_idx]),
+        "record copies": lambda: (vals_d.cpu(), lens_d.cpu()),
+        "dense rows": lambda: tm.gather_rows(segs, dense_idx),
+        "emit": lambda: tr.emit_sparse_blocks(bs, nb_full, ts, sparse, sparse_idx, vals, lens,
+                                              rec_first),
+        "rebuild": lambda: tr.rebuild_blocks(rest, ts, seg, sparse, sparse_idx, vals, lens,
+                                             rec_first, dense_idx, dense),
+        "codec": lambda: tr.encode_blocks(opts, bs, rest, rebuilt, list(payloads), list(entries)),
+        "frame": lambda: chunk.split_header(opts, n, bs, entries, sum(map(len, payloads)))
+        + b"".join(payloads),
+    }
+    times = {k: host_s(f, reps=3) * 1e3 for k, f in stages.items()}
+    print("G stages (ms, medians of 3): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    n_runs = int(rec_first[-1])
+    print(f"G records: {sparse_idx.size} of {nseg} segments sparse, {n_runs} runs "
+          f"({5 * n_runs} bytes of records for {sparse_idx.size * seg} bytes of segments), "
+          f"{dense_idx.size} dense segments ({dense_idx.size * seg} bytes), {nb_full - len(rest)} "
+          f"blocks written by the emitter, {len(rest)} rebuilt and re-encoded, "
+          f"{sum(1 for e in entries if e & 0x80000000)} stored raw")
+
+    # the two kernels on G's own segments, against their plain versions
+    rows_t = torch.from_numpy(sparse_idx).to(DEVICE)
+    bases_t = torch.from_numpy(rec_first).to(DEVICE)
+    want_counts = fr.seg_run_counts_plain(segs)
+    got_vals, got_lens, bad = kernels.rows_rle(segs, rows_t, bases_t, n_runs)
+    want_vals, want_lens = fr.rows_rle_plain(segs, rows_t)
+    torch.cuda.synchronize()
+    check(torch.equal(counts_d, want_counts), f"run-count kernel vs plain on G's segments")
+    check(int(bad) == 0 and torch.equal(got_vals, want_vals) and torch.equal(got_lens, want_lens),
+          f"run-record kernel vs plain on G's {sparse_idx.size} sparse segments")
+    err_counts = int((counts_d - want_counts).abs().max())
+    err_rows = max(max_abs_diff(got_vals, want_vals), int((got_lens - want_lens).abs().max()))
+    del want_vals, want_lens, got_vals, got_lens
+    cuda_ms(lambda: kernels.seg_run_counts(segs), iters=300)  # see phase_kernels
+    flat_rows = segs.index_select(0, rows_t).view(-1)
+    runs, ms = time_turns({
+        "counts": lambda: kernels.seg_run_counts(segs),
+        "counts_generic": lambda: kernels.seg_run_counts(segs, path="generic"),
+        "counts_plain": lambda: fr.seg_run_counts_plain(segs),
+        "rows": lambda: kernels.rows_rle(segs, rows_t, bases_t, n_runs),
+        "rows_generic": lambda: kernels.rows_rle(segs, rows_t, bases_t, n_runs, path="generic"),
+        "rows_plain": lambda: fr.rows_rle_plain(segs, rows_t),
+        # the one PyTorch call near the rows kernel: a yardstick only, since
+        # it joins runs across row edges and takes the rows already gathered
+        "rows_library": lambda: torch.unique_consecutive(flat_rows, return_counts=True),
+    })
+    # what the functions must move and do on these inputs: the count reads
+    # each byte once and writes a count a row, one compare and one add a
+    # byte; the rows kernel reads the chosen rows, their indices and bases
+    # once and writes 5 bytes a run, one compare a byte and one add a run
+    k = sparse_idx.size
+    bounds = {
+        "counts": bound(segs.numel() + 4 * nseg, 2 * segs.numel()),
+        "rows": bound(k * seg + 8 * (2 * k + 1) + 5 * n_runs, k * seg + n_runs),
+    }
+    print(f"rle kernel times on G's segments {tuple(segs.shape)}, {k} rows and {n_runs} runs for "
+          f"the rows kernel, ms as turn 1 / turn 2 (mean of 20 launches each, the plain versions "
+          f"and the library call of 3): " + ", ".join(
+              f"{name} {v[0]:.4f} / {v[1]:.4f}" for name, v in runs.items())
+          + "; equal outputs; bounds: " + ", ".join(
+              f"{name} {b['bound_ms']:.4f} ms by {b['bound_by']}" for name, b in bounds.items()))
+    return {
+        "counts": {"max_abs_err": err_counts, "ms": ms["counts"],
+                   "generic_ms": ms["counts_generic"], "plain_ms": ms["counts_plain"],
+                   **bounds["counts"], "library_ms": None},
+        "rows": {"max_abs_err": err_rows, "ms": ms["rows"], "generic_ms": ms["rows_generic"],
+                 "plain_ms": ms["rows_plain"], **bounds["rows"],
+                 "library_ms": ms["rows_library"]},
+    }
+
+
+def run_path_h(tbt, frames: dict) -> dict:
+    """decompress_array(strategy="records") of each frame, on the card."""
+    out = {name: tbt.decompress_array(frame, torch.float32, device=DEVICE, strategy="records")
+           for name, frame in frames.items()}
+    torch.cuda.synchronize()
+    return out
+
+
+def check_and_time_path_h(tbt, x, frames: dict, decoded: dict) -> dict:
+    """Check path H's results and time the records decode beside the
+    transfer and the device strategy and stage by stage; returns the fill
+    kernel's and its plain version's times, the largest difference and
+    the bound on the path's own records."""
+    from tpu_blosc_torch import chunk, device as dev, format as fmt, match as tm, records as trec
+    from tpu_blosc_torch.filters import fill as ff, kernels
+    from tpu_blosc_torch.filters.match import MATCH_T
+    from tpu_blosc_torch.native import backend as nb
+
+    n = x.numel() * 4
+    gb = n / 1e9
+    for name, frame in frames.items():
+        y = decoded[name]
+        check(y.dtype == x.dtype and y.device == x.device and torch.equal(y, x),
+              f"H: the records decode of the {name} frame gives x")
+        plain = tbt.decompress_array(frame, torch.float32, device=DEVICE, strategy="transfer")
+        check(torch.equal(y, plain), f"H: the records decode of the {name} frame equals the "
+              f"transfer decode")
+        del plain
+        times = {s: host_s(lambda: tbt.decompress_array(frame, torch.float32, device=DEVICE,
+                                                        strategy=s), reps=3)
+                 for s in ("records", "transfer", "device")}
+        print(f"H records decode of C's tensor from the {name} frame ({len(frame)} bytes): "
+              f"medians of 3: " + ", ".join(
+                  f"decompress_array({s}) {gb / t:.3f} GB/s ({t * 1e3:.3f} ms)"
+                  for s, t in times.items()))
+
+    # the stages of decompress_array_records on the match frame, one by one
+    frame = frames["match"]
+    header = fmt.parse_header(frame)
+    bs, ts = header.block_size, header.type_size
+    seg = bs // ts
+    nseg = n // seg
+    native = chunk.native_pipeline_codec(header.codec, 1)
+    stream = dev._decode_filtered_blocks(frame, header, n, native[0], forbid_memcpy=True)[0].numpy()
+    rows2d = stream.reshape(nseg, seg)
+    offsets = tm.match_offsets(seg)
+    d_all = trec.choose_offsets(rows2d, offsets)
+    packed = trec.host_lit_mask_packed(rows2d, d_all, MATCH_T)
+    n_lit = int(np.bitwise_count(packed).sum(dtype=np.int64))
+    pos = nb.mask_positions(packed.reshape(-1), n_lit)
+    vals = stream[pos]
+    args = fill_tensors(pos, vals, d_all, nseg, seg)
+    filled = kernels.match_fill(*args, nseg, seg)
+    stages = {
+        "host block decode": lambda: dev._decode_filtered_blocks(frame, header, n, native[0],
+                                                                 forbid_memcpy=True),
+        "offset choice": lambda: trec.choose_offsets(rows2d, offsets),
+        "mask": lambda: trec.host_lit_mask_packed(rows2d, d_all, MATCH_T),
+        "literal count": lambda: np.bitwise_count(packed).sum(dtype=np.int64),
+        "position scan": lambda: nb.mask_positions(packed.reshape(-1), n_lit),
+        "value gather": lambda: stream[pos],
+        "row index and copies to the card": lambda: fill_tensors(pos, vals, d_all, nseg, seg),
+        "fill kernel": lambda: kernels.match_fill(*args, nseg, seg),
+        "unshuffle kernel": lambda: tbt.filters.unfilter_blocks(filled.view(-1, bs), ts,
+                                                                header.shuffle_mode),
+    }
+    times = {k: host_s(f, reps=3) * 1e3 for k, f in stages.items()}
+    print("H stages, match frame (ms, medians of 3): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"H records: {n_lit} literals ({n_lit / n:.4%} of bytes, {5 * n_lit} bytes of records "
+          f"for {n} bytes), offsets chosen {sorted(set(d_all.tolist()))}")
+
+    want = ff.match_fill_plain(args[0], args[1], args[3], nseg, seg)
+    torch.cuda.synchronize()
+    check(torch.equal(filled, want), f"fill kernel vs plain on H's records ({nseg}, {seg})")
+    err = max_abs_diff(filled, want)
+    del want
+    torch.cuda.empty_cache()
+    cuda_ms(lambda: kernels.match_fill(*args, nseg, seg), iters=100)  # see phase_kernels
+    runs, ms = time_turns({
+        "fill": lambda: kernels.match_fill(*args, nseg, seg),
+        "fill_generic": lambda: kernels.match_fill(*args, nseg, seg, path="generic"),
+        "fill_plain": lambda: ff.match_fill_plain(args[0], args[1], args[3], nseg, seg),
+    })
+    # 5 bytes a record, a first record and an offset a row read once, the
+    # stream written once; one select a byte
+    limit = bound(5 * n_lit + 8 * (nseg + 1) + 4 * nseg + nseg * seg, nseg * seg)
+    print(f"fill kernel times on H's records ({nseg}, {seg}), {n_lit} literals, ms as turn 1 / "
+          f"turn 2 (mean of 20 launches each, the plain version of 3): " + ", ".join(
+              f"{name} {v[0]:.4f} / {v[1]:.4f}" for name, v in runs.items())
+          + f"; equal outputs; bound {limit['bound_ms']:.4f} ms by {limit['bound_by']}")
+    return {"max_abs_err": err, "ms": ms["fill"], "generic_ms": ms["fill_generic"],
+            "plain_ms": ms["fill_plain"], **limit, "library_ms": None}
+
+
+def check_records_load(tbt, state, x, opts, workdir) -> dict:
+    """load_pytree(device=True, strategy="records") of a checkpoint that
+    holds one leaf of F (random bfloat16: too dense for records, so the
+    leaf takes the transfer route) and 64 MiB of C's tensor (which the
+    records route decodes); returns the kernels' launches in that load."""
+    from tpu_blosc_torch.filters import kernels
+
+    tree = {"c_fc": state["params"]["h"][12]["mlp"]["c_fc"]["w"], "tiled": x[: 16 * MIB],
+            "step": state["step"]}
+    path = os.path.join(workdir, "records.tpbs")
+    tbt.save_pytree(path, tree, opts, strategy="match")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loaded = tbt.load_pytree(path, device=True, strategy="records")
+    torch.cuda.synchronize()
+    t_records = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    t0 = time.perf_counter()
+    plain = tbt.load_pytree(path, device=True)
+    torch.cuda.synchronize()
+    t_transfer = time.perf_counter() - t0
+    for key in ("c_fc", "tiled"):
+        check(loaded[key].device == tree[key].device and torch.equal(loaded[key], tree[key])
+              and torch.equal(plain[key], tree[key]),
+              f"H: load_pytree(strategy='records') gives the leaf {key} back exactly")
+    check(loaded["step"] == tree["step"], "H: load_pytree(strategy='records') gives step back")
+    check(launches["match_fill"] == 1 and launches["unshuffle_blocks"] == 1,
+          f"H: the tiled leaf took the records route, the dense one did not ({launches})")
+    nbytes = sum(tree[k].numel() * tree[k].element_size() for k in ("c_fc", "tiled"))
+    print(f"H load_pytree(device=True) of one leaf of F and 64 MiB of C's tensor ({nbytes} "
+          f"bytes, file {os.path.getsize(path)} bytes): strategy records {t_records:.3f} s, "
+          f"transfer {t_transfer:.3f} s; launches {launches}")
+    os.remove(path)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; it runs only on a GPU",
@@ -1159,6 +1726,8 @@ def main() -> int:
     match_k = phase_match_kernel(rng)
     probe_k = phase_probe_kernel(rng)
     bit_k = phase_bit_kernels(gen)
+    rle_k = phase_rle_kernels(rng)
+    fill_k = phase_fill_kernel(rng)
     cases = make_cases(tbt, rng) + make_bit_cases(tbt, rng)  # A, B, D, E
 
     results = run_main_path(tbt, cases)
@@ -1192,7 +1761,36 @@ def main() -> int:
               f"{kernel} launched by compress_array(match), on its vec16 path ({launches_c})")
     check_fast_path("C", launches_c)
     match_c = check_and_time_path_c(tbt, x_c, opts_c, frame_c, y_c)
-    del x_c, y_c
+    del y_c
+
+    x_g = rle_data()
+    opts_g = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE,
+                         type_size=4, block_size=MIB)
+    kernels.reset_launches()
+    frame_g, y_g = run_path_g(tbt, x_g, opts_g)
+    launches_g = dict(kernels.launches)
+    print(f"main path G, launches: {launches_g}")
+    for kernel in ("shuffle_blocks", "seg_run_counts", "rows_rle"):
+        check(launches_g[kernel] >= 1 and launches_g[f"{kernel}.vec16"] == launches_g[kernel],
+              f"{kernel} launched by compress_array(rle), on its vec16 path ({launches_g})")
+    check_fast_path("G", launches_g)
+    rle_g = check_and_time_path_g(tbt, x_g, opts_g, frame_g, y_g)
+    del x_g, y_g, frame_g
+
+    frames_h = {"match": frame_c,
+                "host encoder's": tbt.compress_with_options(x_c.cpu().numpy(), opts_c)}
+    kernels.reset_launches()
+    decoded_h = run_path_h(tbt, frames_h)
+    launches_h = dict(kernels.launches)
+    print(f"main path H, launches: {launches_h}")
+    for kernel in ("match_fill", "unshuffle_blocks"):
+        check(launches_h[kernel] == len(frames_h)
+              and launches_h[f"{kernel}.vec16"] == launches_h[kernel],
+              f"{kernel} launched by each decompress_array(records), on its vec16 path "
+              f"({launches_h})")
+    fill_h = check_and_time_path_h(tbt, x_c, frames_h, decoded_h)
+    del decoded_h, frames_h
+    torch.cuda.empty_cache()
 
     state = gpt2_medium_state(SEED)
     opts_f = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE)
@@ -1205,6 +1803,8 @@ def main() -> int:
         for kernel in ("shuffle_blocks", "unshuffle_blocks"):
             check(launches_f[kernel] >= 1, f"F: {kernel} launched ({launches_f})")
         check_path_f(tbt, state, opts_f, *f_run, workdir)
+        del f_run
+        launches_h_load = check_records_load(tbt, state, x_c, opts_f, workdir)
     finally:
         shutil.rmtree(workdir)
 
@@ -1213,8 +1813,10 @@ def main() -> int:
 
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
-    # the kernels' launches in the main paths A, B, D, E, C and F
-    main_runs = [counts for _, _, counts in results] + [launches_c, launches_f]
+    # the kernels' launches in the main paths A, B, D, E, C, G, H (the two
+    # decodes, and the checkpoint load) and F
+    main_runs = [counts for _, _, counts in results] + [
+        launches_c, launches_g, launches_h, launches_h_load, launches_f]
 
     def shuffle_entry(kernel: str, key: str, replaces: str) -> dict:
         """The JSON entry of one shuffle kernel; ``key`` names its times."""
@@ -1274,6 +1876,18 @@ def main() -> int:
         {**probe_entry, "replaces": pk + "126"},
         bit_entry("tpbt_bitshuffle_blocks", "bit_shuffle_blocks", "shuffle", 65),
         bit_entry("tpbt_bitunshuffle_blocks", "bit_unshuffle_blocks", "unshuffle", 74),
+        {"name": "tpbt_seg_run_counts", "route": "cuda", "source": src + "rle.cu",
+         "replaces": "tpu_blosc/device.py:165", "launches": launches_g["seg_run_counts"],
+         **rle_g["counts"],
+         "max_abs_err": max(rle_k["counts_max_abs_err"], rle_g["counts"]["max_abs_err"])},
+        {"name": "tpbt_rows_rle", "route": "cuda", "source": src + "rle.cu",
+         "replaces": "tpu_blosc/device.py:184", "launches": launches_g["rows_rle"],
+         **rle_g["rows"],
+         "max_abs_err": max(rle_k["rows_max_abs_err"], rle_g["rows"]["max_abs_err"])},
+        {"name": "tpbt_match_fill", "route": "cuda", "source": src + "fill.cu",
+         "replaces": "tpu_blosc/device.py:1248",
+         "launches": launches_h["match_fill"] + launches_h_load["match_fill"], **fill_h,
+         "max_abs_err": max(fill_k["max_abs_err"], fill_h["max_abs_err"])},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

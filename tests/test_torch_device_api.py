@@ -326,19 +326,23 @@ def test_decompress_array_dtype_mismatch():
         jb.decompress_array(frame, np.float32)
 
 
-@pytest.mark.parametrize(
-    "call",
-    [
-        lambda x: tb.compress_array(x, strategy="rle"),
-        lambda x: tb.decompress_array(
-            tb.compress_array(x), torch.float32, device="cpu", strategy="records"
-        ),
-    ],
-    ids=["rle", "records"],
-)
-def test_unported_paths_raise_not_implemented(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(torch.arange(40_000, dtype=torch.float32))
+@pytest.mark.parametrize("path", ["rle", "records"])
+def test_unported_paths_raise_not_implemented(path):
+    """The rle compress strategy and the records decode run (both raised
+    NotImplementedError before they were ported) and give tpu_blosc's
+    result: its frame, and the array back."""
+    data = (np.arange(400_000) // 64).astype(np.float32)
+    jo, to = _opts(block_size=65536)
+    if path == "rle":
+        frame = tb.compress_array(_tensor(data), to, strategy="rle")
+        assert frame == jb.compress_array(jnp.asarray(data), jo, strategy="rle")
+        assert frame != tb.compress_array(_tensor(data), to)  # the emitter engaged
+        assert jb.decompress(frame) == data.tobytes()
+    else:
+        frame = tb.compress_array(_tensor(data[:393_216]), to)
+        got = tb.decompress_array(frame, torch.float32, device="cpu", strategy="records")
+        want = jb.decompress_array(frame, np.float32, strategy="records")
+        assert got.numpy().tobytes() == np.asarray(want).tobytes() == data[:393_216].tobytes()
 
 
 @pytest.mark.parametrize(

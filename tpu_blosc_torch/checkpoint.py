@@ -223,8 +223,8 @@ def save_pytree(path, tree, opts: Options | None = None, checksum: bool = False,
 
     ``checksum=True`` adds a crc32 to every record, so a load detects a
     flipped bit instead of returning plausible garbage.  ``strategy``
-    applies to CUDA leaves (compress_array's: "transfer", "match" or
-    "auto").
+    applies to CUDA leaves (compress_array's: "transfer", "match",
+    "auto" or "rle").
     """
     leaves: list = []
     skeleton = _encode(tree, leaves)
@@ -264,7 +264,8 @@ def load_pytree(path, device=False, strategy: str = "transfer"):
 
     ``strategy`` goes to decompress_array for each leaf of a device load;
     "transfer" and "auto" decode on the host with a prefetch pipeline and
-    copy each leaf once.
+    copy each leaf once; "device", "rle" and "records" decode each leaf
+    through decompress_array's strategy of that name.
     """
     target = load_target(device, "load_pytree")
     with StreamReader(path) as r:

@@ -1,9 +1,9 @@
 """Device tensors in, Blosc frames out, and back.
 
-Counterpart: ``tpu_blosc/device.py``, the transfer, match and auto
-strategies of ``compress_array`` (:692-876; match in ``match.py``) and
-the transfer and device strategies of ``decompress_array`` (:1455-1535,
-:1592-1710).
+Counterpart: ``tpu_blosc/device.py``: ``compress_array`` (:692-876; its
+match strategy in ``match.py``, its rle strategy in ``rle.py``) and
+``decompress_array`` (:1455-1535, :1592-1710; its records strategy in
+``records.py``).
 
 Compress: every full block of the tensor's bytes is filtered on the
 tensor's device (byte shuffle: filters.batched.shuffle_blocks; bit
@@ -25,8 +25,16 @@ discovery on the device and LZ4 streams written from literal records
 (``match.py``); other codecs, and data the match strategy does not suit,
 take the transfer route.
 
-The rle and records strategies are not ported yet and raise
-NotImplementedError.
+Rle ("rle"): for LZ4 and LZ4HC, run scan on the device and LZ4 streams
+written from run records (``rle.py``), with the same fallbacks to the
+transfer route.
+
+Decompress ("rle", and "records", which is the same): for filtered
+multi-block LZ4 frames only the literal records of the decoded, still
+filtered stream cross to the device, which rebuilds and unfilters it
+(``records.py``); other frames take the transfer route.
+
+A strategy name that none of these is takes the transfer route.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import torch
 
 from . import filters
 from . import match as _match
+from . import records as _records
+from . import rle as _rle
 from .api import (
     AUTO_BLOCK_THRESHOLD,
     compress_with_options,
@@ -60,11 +70,6 @@ from .options import Options
 # (tpu_blosc/device.py:818-821); zlib's byte identity depends on it
 _PREFILTERED = 8
 
-_STRATEGY_TODO = (
-    "compress_array/decompress_array strategy {!r} is not ported yet; "
-    "see ROADMAP.md, Queue 1, 'Device codec strategies'"
-)
-
 
 def tensor_bytes(x: torch.Tensor) -> torch.Tensor:
     """The tensor's bytes in logical C order, as a flat uint8 tensor on its
@@ -84,19 +89,17 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
     ``opts.type_size`` left at the default (4) takes the dtype's element
     size instead, as in tpu_blosc/device.py:740-747.  Single-block,
     unfiltered and sub-block inputs take the host route.  ``strategy``
-    is "transfer" (frames byte-identical to the host path), or "match" or
-    "auto" (see the module docstring).
+    is "transfer" (frames byte-identical to the host path), "match" or
+    "auto", or "rle" (see the module docstring).
     """
     return _compress_array_stage2(_compress_array_stage1(x, opts, strategy))
 
 
 def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str):
     """The device and copy half of compress_array: the finished frame
-    (bytes) when the tensor took the host route or the match strategy
-    engaged, else ``(filtered host stream, options, block size)`` for
+    (bytes) when the tensor took the host route or the match or the rle
+    strategy engaged, else ``(filtered host stream, options, block size)`` for
     _compress_array_stage2 (≙ tpu_blosc/device.py:720-770)."""
-    if strategy not in ("transfer", "match", "auto"):
-        raise NotImplementedError(_STRATEGY_TODO.format(strategy))
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"compress_array takes a torch.Tensor, got {type(x)!r}")
     if opts is None:
@@ -116,8 +119,10 @@ def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str)
     use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
     if not use_chunked or not do_filter or nb_full == 0:
         return compress_with_options(flat.cpu().numpy(), opts)
-    if strategy != "transfer" and opts.codec in (Codec.LZ4, Codec.LZ4HC):
-        frame = _match.compress_array_match(flat, opts, nb_full, block_size)
+    engage = {"match": _match.compress_array_match, "auto": _match.compress_array_match,
+              "rle": _rle.compress_array_rle}.get(strategy)
+    if engage is not None and opts.codec in (Codec.LZ4, Codec.LZ4HC):
+        frame = engage(flat, opts, nb_full, block_size)
         if frame is not None:
             return frame
     return _device_filter_fetch(flat, opts, nb_full, block_size), opts, block_size
@@ -181,15 +186,18 @@ def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
     the result once; "device" decodes the codec stage on the host and
     unfilters on the device, for byte- and bit-shuffled multi-block frames
     at any type size (other frames take the host decode, as in the JAX
-    package, which takes this route at type size 4 only).
+    package, which takes this route at type size 4 only); "rle" and
+    "records" ship only literal records to the device, for filtered
+    multi-block LZ4 frames without a ragged tail or a block stored raw
+    (other frames take the host decode).
     """
-    if strategy not in ("auto", "transfer", "device"):
-        raise NotImplementedError(_STRATEGY_TODO.format(strategy))
     target = filters.target_device(device, "decompress_array")
     n = checked_decode_size(data, dtype)
     out = None
     if strategy == "device":
         out = _decompress_array_devfilter(data, n, target)
+    elif strategy in ("rle", "records"):
+        out = _records.decompress_array_records(data, n, target)
     if out is None:
         out = host_decode(data, n).to(target)
     out = out.view(dtype)
@@ -216,16 +224,20 @@ def host_decode(data, n: int) -> torch.Tensor:
     return host
 
 
-def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int):
+def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int,
+                            forbid_memcpy: bool = False):
     """Host decode of a FLAG_SPLIT frame's blocks to the still-filtered
     stream (shuffle mode 0), as a CPU uint8 tensor, with the block table.
     None when the layout does not add up: the host path then raises with
     full context (≙ tpu_blosc/device.py:1592-1627).  Blocks stored raw
-    come back raw."""
+    come back raw; with ``forbid_memcpy`` a frame that has one gives None
+    before anything is decoded."""
     if header.nbytes_comp > len(raw) or header.nbytes_comp < HEADER_SIZE:
         return None
     entries, offset = parse_block_table(raw, header)
     if len(entries) != -(-n // header.block_size):
+        return None
+    if forbid_memcpy and any(m for _, m in entries):
         return None
     offsets, psizes, is_memcpy = payload_offsets(entries, offset)
     if int(offsets[-1] + psizes[-1]) > min(len(raw), header.nbytes_comp):

@@ -19,7 +19,15 @@ library with a plain C interface:
 - ``bitshuffle.cu``: ``tpbt_bitshuffle_blocks`` /
   ``tpbt_bitunshuffle_blocks``, replacing the XLA device programs
   ``_bit_shuffle_batch_dev`` and ``_bit_unshuffle_batch_dev``
-  (``tpu_blosc/filters/batched.py:65-79``); the launcher picks its path.
+  (``tpu_blosc/filters/batched.py:65-79``); the launcher picks its path;
+- ``rle.cu``: ``tpbt_seg_run_counts`` and ``tpbt_rows_rle``, replacing the
+  XLA device programs ``_device_filter_seg_counts`` (its count; the
+  filter before it is the shuffle kernel) and ``_device_rows_rle``
+  (``tpu_blosc/device.py:165-207``); two paths that ``rle_path`` picks
+  between;
+- ``fill.cu``: ``tpbt_match_fill``, replacing the scatter and the forward
+  fill of ``_device_match_decode`` (``tpu_blosc/device.py:1248-1357``);
+  two paths that ``fill_path`` picks between.
 
 nvcc compiles each source for ``sm_90a``, all at once, into
 ``tpu_blosc_torch/_build/`` at the first launch; a change to any source
@@ -31,7 +39,8 @@ stream, and raises when the launch is refused.  ``launches`` counts the
 launches of each kernel (and of each path of the shuffle and match
 kernels, as ``"shuffle_blocks.vec16"`` and the like), so a caller can show
 that a path went through it.  The plain PyTorch versions live in ``filters/batched.py``,
-``filters/match.py`` and ``filters/probe.py``.
+``filters/match.py``, ``filters/probe.py``, ``filters/rle.py`` and
+``filters/fill.py``.
 """
 
 from __future__ import annotations
@@ -62,15 +71,23 @@ SHUFFLE_PATHS = {"generic": 0, "vec16": 1}
 VEC16_TYPE_SIZES = (2, 4, 8, 16)
 # the match kernels' paths, as csrc/match.cu numbers them
 MATCH_PATHS = {"generic": 0, "vec16": 1}
+# the rle kernels' and the fill kernel's paths, as csrc/rle.cu and
+# csrc/fill.cu number them
+RLE_PATHS = {"generic": 0, "vec16": 1}
+FILL_PATHS = {"generic": 0, "vec16": 1}
 
 # launches of each kernel since the last reset_launches()
 launches = {"shuffle_blocks": 0, "unshuffle_blocks": 0, "match_nibble": 0,
             "match_count": 0, "probe_tiles": 0, "bit_shuffle_blocks": 0,
-            "bit_unshuffle_blocks": 0}
+            "bit_unshuffle_blocks": 0, "seg_run_counts": 0, "rows_rle": 0,
+            "match_fill": 0}
 launches.update({f"{kernel}.{path}": 0 for kernel in ("shuffle_blocks", "unshuffle_blocks")
                  for path in SHUFFLE_PATHS})
 launches.update({f"{kernel}.{path}": 0 for kernel in ("match_nibble", "match_count")
                  for path in MATCH_PATHS})
+launches.update({f"{kernel}.{path}": 0 for kernel in ("seg_run_counts", "rows_rle")
+                 for path in RLE_PATHS})
+launches.update({f"match_fill.{path}": 0 for path in FILL_PATHS})
 
 # the mask kernel's window bounds the run length (csrc/match.cu kMaxT)
 MATCH_MAX_T = 9
@@ -79,6 +96,9 @@ MATCH_MAX_OFFSETS = 32
 # the longest segment the match kernels take (32-bit positions with room
 # for a tile past the row: csrc/match.cu refuse)
 MATCH_MAX_SEG = 2**31 - 1 - 2 * 16384
+# the largest offset the fill kernel takes (csrc/fill.cu kMaxD): the
+# largest candidate of match.match_offsets
+FILL_MAX_D = 1024
 # the probe's layout: int32 words per row, rows per 1 MiB tile
 PROBE_LANES = 512
 PROBE_TILE_ROWS = 512
@@ -131,6 +151,9 @@ def lib() -> ctypes.CDLL:
                     ("tpbt_probe_tiles", [p, i64, p, p]),
                     ("tpbt_bitshuffle_blocks", [p, p, i64, i64, i64, p]),
                     ("tpbt_bitunshuffle_blocks", [p, p, p, i64, i64, i64, p]),
+                    ("tpbt_seg_run_counts", [p, p, i64, i64, ctypes.c_int, p]),
+                    ("tpbt_rows_rle", [p, p, p, p, p, p, i64, i64, i64, ctypes.c_int, p]),
+                    ("tpbt_match_fill", [p, p, p, p, p, i64, i64, ctypes.c_int, p]),
                 ):
                     fn = getattr(handle, name)
                     fn.restype = ctypes.c_int
@@ -186,6 +209,60 @@ def match_path(seg: int, segs_ptr: int, out_ptr: int = 0) -> str:
     conditions and refuse "vec16" where they do not hold."""
     ok = seg % 64 == 0 and segs_ptr % 16 == 0 and out_ptr % 16 == 0
     return "vec16" if ok else "generic"
+
+
+def rle_path(seg: int, segs_ptr: int) -> str:
+    """The rle kernels' path for rows of ``seg`` bytes at this address:
+    "vec16" where seg is a multiple of 16 and the pointer lies on a
+    16-byte boundary, "generic" everywhere else.  The launchers check the
+    same conditions and refuse "vec16" where they do not hold."""
+    return "vec16" if seg % 16 == 0 and segs_ptr % 16 == 0 else "generic"
+
+
+def fill_path(seg: int, out_ptr: int) -> str:
+    """The fill kernel's path for rows of ``seg`` bytes written at this
+    address: "vec16" or "generic", by rle_path's rule."""
+    return rle_path(seg, out_ptr)
+
+
+def check_rle_segs(segs: torch.Tensor) -> None:
+    """The geometry every route of the rle kernels takes: a contiguous
+    (nseg, seg) uint8 tensor with 1 <= seg <= MATCH_MAX_SEG."""
+    if segs.dtype != torch.uint8 or segs.dim() != 2 or not segs.is_contiguous():
+        raise ValueError("segs must be a contiguous 2-D uint8 tensor")
+    if not 1 <= segs.shape[1] <= MATCH_MAX_SEG:
+        raise ValueError(f"segment length {segs.shape[1]} is not in 1..{MATCH_MAX_SEG}")
+
+
+def check_rows_args(segs: torch.Tensor, rows: torch.Tensor, bases: torch.Tensor) -> None:
+    """check_rle_segs', and the chosen rows as a (k,) int64 tensor with
+    their record bases as a (k + 1,) int64 tensor, both on segs' device."""
+    check_rle_segs(segs)
+    for name, t in (("rows", rows), ("bases", bases)):
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int64 tensor")
+        if t.device != segs.device:
+            raise ValueError(f"{name} is on {t.device}, segs on {segs.device}")
+    if bases.shape[0] != rows.shape[0] + 1:
+        raise ValueError(f"bases must have {rows.shape[0] + 1} entries, got {bases.shape[0]}")
+
+
+def check_fill_args(pos: torch.Tensor, vals: torch.Tensor, row_first: torch.Tensor,
+                    row_d: torch.Tensor, nseg: int, seg: int) -> None:
+    """The geometry every route of the fill takes: (n_lit,) int32
+    positions with their (n_lit,) uint8 bytes, (nseg + 1,) int64 first
+    records and (nseg,) int32 offsets, contiguous and on one device;
+    nseg >= 0, seg >= 1 and nseg * seg < 2**31 (positions are int32)."""
+    if nseg < 0 or seg < 1 or nseg * seg >= 2**31:
+        raise ValueError(f"need nseg >= 0, seg >= 1 and nseg * seg < 2**31, got {nseg}, {seg}")
+    shapes = (("pos", pos, torch.int32, pos.shape[:1]), ("vals", vals, torch.uint8, pos.shape[:1]),
+              ("row_first", row_first, torch.int64, (nseg + 1,)),
+              ("row_d", row_d, torch.int32, (nseg,)))
+    for name, t, dtype, shape in shapes:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {tuple(shape)}")
+        if t.device != pos.device:
+            raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
 
 
 def _check_segs(segs: torch.Tensor, least: int) -> None:
@@ -279,21 +356,23 @@ def offsets_tensor(offsets: tuple[int, ...], device: torch.device) -> torch.Tens
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
-def _pick_match_path(path: str | None, segs: torch.Tensor, out_ptr: int = 0) -> str:
+def _named_path(path: str | None, picked: str, paths: dict, what: str) -> str:
     if path is None:
-        return match_path(segs.shape[1], segs.data_ptr(), out_ptr)
-    if path not in MATCH_PATHS:
-        raise ValueError(f"unknown match path {path!r}; expected one of {list(MATCH_PATHS)}")
+        return picked
+    if path not in paths:
+        raise ValueError(f"unknown {what} path {path!r}; expected one of {list(paths)}")
     return path
+
+
+def _pick_match_path(path: str | None, segs: torch.Tensor, out_ptr: int = 0) -> str:
+    return _named_path(path, match_path(segs.shape[1], segs.data_ptr(), out_ptr),
+                       MATCH_PATHS, "match")
 
 
 def _pick_path(path: str | None, blocks: torch.Tensor, type_size: int,
                out: torch.Tensor) -> str:
-    if path is None:
-        return shuffle_path(blocks.shape[1], type_size, blocks.data_ptr(), out.data_ptr())
-    if path not in SHUFFLE_PATHS:
-        raise ValueError(f"unknown shuffle path {path!r}; expected one of {list(SHUFFLE_PATHS)}")
-    return path
+    picked = shuffle_path(blocks.shape[1], type_size, blocks.data_ptr(), out.data_ptr())
+    return _named_path(path, picked, SHUFFLE_PATHS, "shuffle")
 
 
 def shuffle_blocks(blocks: torch.Tensor, type_size: int,
@@ -485,4 +564,94 @@ def probe_tiles(words: torch.Tensor) -> torch.Tensor:
         )
     _raise_if_failed(rc, "tpbt_probe_tiles")
     launches["probe_tiles"] += 1
+    return out
+
+
+def seg_run_counts(segs: torch.Tensor, path: str | None = None) -> torch.Tensor:
+    """Per row of a CUDA (nseg, seg) uint8 tensor, its runs: 1 + the
+    number of p >= 1 with x[p] != x[p-1], as an int32 tensor.  On the path
+    ``rle_path`` picks unless ``path`` names one."""
+    _require_cuda(segs)
+    check_rle_segs(segs)
+    nseg, seg = segs.shape
+    counts = torch.zeros((nseg,), dtype=torch.int32, device=segs.device)
+    if nseg == 0:
+        return counts
+    path = _named_path(path, rle_path(seg, segs.data_ptr()), RLE_PATHS, "rle")
+    with torch.cuda.device(segs.device):
+        rc = lib().tpbt_seg_run_counts(
+            segs.data_ptr(), counts.data_ptr(), nseg, seg, RLE_PATHS[path],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, f"tpbt_seg_run_counts ({path} path)")
+    launches["seg_run_counts"] += 1
+    launches[f"seg_run_counts.{path}"] += 1
+    return counts
+
+
+def rows_rle(segs: torch.Tensor, rows: torch.Tensor, bases: torch.Tensor,
+             n_runs: int, path: str | None = None):
+    """(vals, lens, bad) of the rows ``rows`` (a (k,) int64 CUDA tensor)
+    of a CUDA (nseg, seg) uint8 tensor: every run's byte (uint8) and
+    length (int32), row after row in the order given; row j's records
+    start at ``bases[j]`` (a (k + 1,) int64 CUDA tensor: the exclusive sum
+    of the rows' run counts, ``bases[k] == n_runs``).  ``bad`` is a
+    one-element int32 CUDA tensor, 1 when some row's runs were not its
+    count (the records are then not to be used), and reading it waits for
+    the kernel.  On the path ``rle_path`` picks unless ``path`` names
+    one."""
+    _require_cuda(segs)
+    check_rows_args(segs, rows, bases)
+    if n_runs < 0:
+        raise ValueError(f"n_runs must be >= 0, got {n_runs}")
+    nseg, seg = segs.shape
+    k = rows.shape[0]
+    vals = torch.empty((n_runs,), dtype=torch.uint8, device=segs.device)
+    lens = torch.empty((n_runs,), dtype=torch.int32, device=segs.device)
+    bad = torch.zeros((1,), dtype=torch.int32, device=segs.device)
+    if k == 0:
+        return vals, lens, bad
+    path = _named_path(path, rle_path(seg, segs.data_ptr()), RLE_PATHS, "rle")
+    with torch.cuda.device(segs.device):
+        rc = lib().tpbt_rows_rle(
+            segs.data_ptr(), rows.data_ptr(), bases.data_ptr(), vals.data_ptr(),
+            lens.data_ptr(), bad.data_ptr(), nseg, seg, k, RLE_PATHS[path],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, f"tpbt_rows_rle ({path} path)")
+    launches["rows_rle"] += 1
+    launches[f"rows_rle.{path}"] += 1
+    return vals, lens, bad
+
+
+def match_fill(pos: torch.Tensor, vals: torch.Tensor, row_first: torch.Tensor,
+               row_d: torch.Tensor, nseg: int, seg: int,
+               out: torch.Tensor | None = None, path: str | None = None) -> torch.Tensor:
+    """The (nseg, seg) uint8 stream of literal records on the card:
+    ``pos`` are the literals' sorted, unique flat positions (int32),
+    ``vals`` their bytes, row r's records ``pos[row_first[r] :
+    row_first[r+1]]`` (int64) and its offset ``row_d[r]`` (int32, 1 to
+    FILL_MAX_D); out[r, i] is the literal at i, else out[r, i - d], 0
+    below d.  The result goes to ``out`` when given.  On the path
+    ``fill_path`` picks unless ``path`` names one."""
+    _require_cuda(pos)
+    check_fill_args(pos, vals, row_first, row_d, nseg, seg)
+    if out is None:
+        out = torch.empty((nseg, seg), dtype=torch.uint8, device=pos.device)
+    else:
+        _check_cuda(out, pos.device, "out")
+        if out.dtype != torch.uint8 or tuple(out.shape) != (nseg, seg) or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous uint8 tensor of shape ({nseg}, {seg})")
+    if nseg == 0:
+        return out
+    path = _named_path(path, fill_path(seg, out.data_ptr()), FILL_PATHS, "fill")
+    with torch.cuda.device(pos.device):
+        rc = lib().tpbt_match_fill(
+            pos.data_ptr(), vals.data_ptr(), row_first.data_ptr(), row_d.data_ptr(),
+            out.data_ptr(), nseg, seg, FILL_PATHS[path],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, f"tpbt_match_fill ({path} path)")
+    launches["match_fill"] += 1
+    launches[f"match_fill.{path}"] += 1
     return out

@@ -77,6 +77,7 @@ _SIGNATURES = {
         _int, _int, _int,        # ts, shuffle_mode, codec
     ]),
     "tpb_lz4_compress": (_i64, [_p, _i64, _p, _i64, _int]),
+    "tpb_lz4_emit_runs": (_i64, [_p, _p, _i64, _i64, _p, _i64]),
     "tpb_lz4_emit_mixed": (_i64, [
         _p, _p, _i64,            # lit_pos, lit_bytes, nlit
         _p, _i64, _i64,          # row_d, seg, n
@@ -197,6 +198,21 @@ def lz4_compress(data, depth: int = 1) -> bytes:
     written = lib().tpb_lz4_compress(_addr(a), a.size, _addr(out), cap, depth)
     if written < 0:
         raise RuntimeError(f"native lz4 compress failed ({written})")
+    return out[:written].tobytes()
+
+
+def lz4_emit_runs(vals: np.ndarray, lens: np.ndarray, n: int) -> bytes:
+    """A standard LZ4 block of ``n`` bytes from (value, length) run
+    records, in time proportional to the runs
+    (≙ tpu_blosc/native/backend.py:357-372)."""
+    vals = np.ascontiguousarray(vals, dtype=np.uint8)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    cap = n + n // 255 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    written = lib().tpb_lz4_emit_runs(_addr(vals), _addr(lens), vals.size, n,
+                                      _addr(out), cap)
+    if written < 0:
+        raise RuntimeError(f"lz4_emit_runs failed ({written})")
     return out[:written].tobytes()
 
 
