@@ -50,12 +50,17 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
      raise; each launcher refusing what it does not take (and, in step 8,
      path G's own (1024, 262144) segments, where both are timed);
    - the fill kernel of the records decode, on both of its paths and into
-     a view 4 bytes off, at the same five seg: offsets 1, 3, 48, 96, 1024,
-     7, 250, 255 and 256 (most divide no seg), a row of 30% literals, a
-     row whose only literals are its first d bytes, a row with no record,
-     and one (1, 2**24) row at d = 1; the launcher and the wrapper
-     refusing what they do not take (and, in step 9, path H's own
-     records, where it is timed);
+     a view 4 bytes off, at seg 256, 1000, 4096, 8192 (one tile of the
+     kernel), 8208, 16384, 18440, 24581 and 262144: offsets filled in
+     bytes (1, 2, 3, 6, 7, 250, 255), in words (4, 12, 24) and in uint4
+     (16, 48, 96, 256, 768, 1024; most divide no seg), literals on both
+     sides of the tile edges, a tile with no record, a row of 30%
+     literals, a row of literals only, a row whose only literals are its
+     first d bytes, a row with no record, and one (1, 2**24) row at d = 1;
+     the launcher and the wrapper refusing what they do not take (and, in
+     step 9, path H's own records, where it is timed, and synthetic
+     records at 2.2% on the same geometry at offsets 1, 3, 4, 16, 256 and
+     1024);
 3. main path A: a 64 MiB float32 ramp, LZ4 level 5, byte shuffle;
 4. main path B: 64 MB of float64 signal, ZSTD level 5, byte shuffle,
    with one 1 MiB block of random bytes (memcpy fallback) and a ragged
@@ -1318,25 +1323,50 @@ def fill_tensors(pos: np.ndarray, vals: np.ndarray, row_d: np.ndarray, nseg: int
 
 def fill_case(rng, seg: int, offsets) -> tuple:
     """Literal records of one row per offset (its first d bytes and 1% of
-    the rest literal; the first row 30%, so that a tile holds more records
-    than the block places at once), a row whose only literals are its
-    first d bytes, and a row with no record at all."""
-    nrows = len(offsets) + 2
-    row_d = np.array(list(offsets) + [offsets[-1], offsets[0]], dtype=np.int32)
+    the rest literal; the first row 30%, so that a tile holds many more
+    records than the block has threads), a row of literals only, a row
+    whose only literals are its first d bytes, and a row with no record at
+    all.  Every second row has literals on both sides of the kernel's
+    first two tile edges; the others only before the first and after the
+    second, and no record in the tile between."""
+    from tpu_blosc_torch.filters.kernels import FILL_TILE as tile
+
+    nrows = len(offsets) + 3
+    row_d = np.array(list(offsets) + [offsets[0], offsets[-1], offsets[0]], dtype=np.int32)
     lit = rng.random((nrows, seg)) < 0.01
     lit[0] = rng.random(seg) < 0.3
+    lit[1::2, tile: 2 * tile] = False
     for r, d in enumerate(offsets):
         lit[r, :d] = True
+        edges = (tile - 1, tile, 2 * tile - 1, 2 * tile) if r % 2 == 0 else (tile - 1, 2 * tile)
+        lit[r, [e for e in edges if e < seg]] = True
+    lit[-3] = True
     lit[-2:] = False
     lit[-2, : row_d[-2]] = True
     pos = np.flatnonzero(lit).astype(np.int32)
     return pos, rng.integers(0, 256, pos.size, dtype=np.uint8), row_d, nrows
 
 
+def synthetic_fill_records(gen, nseg: int, seg: int, d: int, density: float) -> list:
+    """(pos, vals, row_first, row_d) on the card for nseg rows at offset d:
+    each row's first d bytes and ``density`` of the rest literal, from the
+    seeded generator."""
+    lit = torch.rand((nseg, seg), device=DEVICE, generator=gen) < density
+    lit[:, :d] = True
+    pos = torch.nonzero(lit.view(-1)).view(-1).to(torch.int32)
+    del lit
+    vals = torch.randint(0, 256, pos.shape, dtype=torch.uint8, device=DEVICE, generator=gen)
+    starts = (torch.arange(nseg + 1, dtype=torch.int64, device=DEVICE) * seg).to(torch.int32)
+    row_first = torch.searchsorted(pos, starts).to(torch.int64)
+    return [pos, vals, row_first, torch.full((nseg,), d, dtype=torch.int32, device=DEVICE)]
+
+
 def phase_fill_kernel(rng) -> dict:
-    """The fill kernel against its plain version at five segment lengths
-    and one (1, 2**24) row at d = 1, on both paths and into a view 4 bytes
-    off a 16-byte boundary; returns the largest error."""
+    """The fill kernel against its plain version at nine segment lengths
+    (one tile, a tile and 16 bytes, two tiles, three tiles and 5 bytes
+    among them) with offsets of each width the kernel fills in, and one
+    (1, 2**24) row at d = 1, on both paths and into a view 4 bytes off a
+    16-byte boundary; returns the largest error."""
     from tpu_blosc_torch.filters import fill as ff, kernels
 
     worst = 0
@@ -1361,14 +1391,20 @@ def phase_fill_kernel(rng) -> dict:
         got = ff.match_fill(pos, vals, row_d, nseg, seg, DEVICE)
         check(torch.equal(got, want), f"match_fill wrapper vs plain, {what}")
 
-    for seg in (256, 1000, 4096, 18440, 262144):
-        # 3, 48 and 96 divide none of these; 7 and 250 are no candidates
-        offsets = [d for d in (1, 3, 48, 96, 1024, 7, 250, 256, 255) if d < seg]
+    tile = kernels.FILL_TILE
+    for seg in (256, 1000, 4096, tile, tile + 16, 2 * tile, 18440, 3 * tile + 5, 262144):
+        # filled in bytes: 1, 2, 3, 6, 7, 250, 255; in words: 4, 12, 24; in
+        # uint4: 16, 48, 96, 256, 768, 1024.  3, 48 and 96 divide none of
+        # these seg; 7, 250 and 255 are no candidates
+        offsets = [d for d in (1, 3, 48, 96, 1024, 7, 250, 256, 255, 2, 6, 4, 12, 24, 16, 768)
+                   if d < seg]
         pos, vals, row_d, nrows = fill_case(rng, seg, offsets)
         compare(pos, vals, row_d, nrows, seg, f"seg={seg}")
         print(f"fill kernel: seg={seg}, {nrows} rows at d={row_d.tolist()}, {pos.size} records "
-              f"(one row with only its first d bytes literal, one with none): equal to the "
-              f"plain version on both paths and into a view 4 bytes off alignment")
+              f"(literals on both sides of the tile edges {tile} and {2 * tile}, rows with no "
+              f"record between them, one row of literals only, one with only its first d bytes "
+              f"literal, one with none): equal to the plain version on both paths and into a "
+              f"view 4 bytes off alignment")
     seg = 1 << 24
     pos = np.unique(np.concatenate([[0], rng.choice(seg, 1000, replace=False),
                                     [seg - 1]])).astype(np.int32)
@@ -1381,10 +1417,11 @@ def phase_fill_kernel(rng) -> dict:
 
     # refusals: the wrapper for offsets and positions out of range, the
     # launcher for a path that does not fit and geometry it does not take
-    args = fill_tensors(*fill_case(rng, 1000, [1, 3])[:3], 4, 1000)
+    *case, nrows = fill_case(rng, 1000, [1, 3])
+    args = fill_tensors(*case, nrows, 1000)
     before = dict(kernels.launches)
     try:
-        kernels.match_fill(*args, 4, 1000, path="vec16")
+        kernels.match_fill(*args, nrows, 1000, path="vec16")
     except RuntimeError as e:
         check("CUDA error 1" in str(e), f"match_fill refusal names the error: {e}")
     else:
@@ -1399,13 +1436,13 @@ def phase_fill_kernel(rng) -> dict:
             raise RuntimeError(f"chip_smoke check failed: match_fill took d = {bad_d}")
     lib = kernels.lib()
     stream = torch.cuda.current_stream().cuda_stream
-    out = torch.empty(4 * 1000, dtype=torch.uint8, device=DEVICE)
+    out = torch.empty(nrows * 1000, dtype=torch.uint8, device=DEVICE)
     ptrs = [a.data_ptr() for a in args]
     rcs = {
-        "seg 0": lib.tpbt_match_fill(*ptrs, out.data_ptr(), 4, 0, 0, stream),
+        "seg 0": lib.tpbt_match_fill(*ptrs, out.data_ptr(), nrows, 0, 0, stream),
         "2**31 bytes": lib.tpbt_match_fill(*ptrs, out.data_ptr(), 2**15, 2**16, 0, stream),
-        "path 2": lib.tpbt_match_fill(*ptrs, out.data_ptr(), 4, 1000, 2, stream),
-        "no out": lib.tpbt_match_fill(*ptrs, None, 4, 1000, 0, stream),
+        "path 2": lib.tpbt_match_fill(*ptrs, out.data_ptr(), nrows, 1000, 2, stream),
+        "no out": lib.tpbt_match_fill(*ptrs, None, nrows, 1000, 0, stream),
     }
     check(set(rcs.values()) == {1}, f"the fill launcher refuses bad arguments: {rcs}")
     check(kernels.launches == before, "a refused fill launch was counted")
@@ -1588,7 +1625,8 @@ def check_and_time_path_h(tbt, x, frames: dict, decoded: dict) -> dict:
     """Check path H's results and time the records decode beside the
     transfer and the device strategy and stage by stage; returns the fill
     kernel's and its plain version's times, the largest difference and
-    the bound on the path's own records."""
+    the bound on the path's own records, and the kernel's times on
+    synthetic records at 2.2% for offsets 1, 3, 4, 16, 256 and 1024."""
     from tpu_blosc_torch import chunk, device as dev, format as fmt, match as tm, records as trec
     from tpu_blosc_torch.filters import fill as ff, kernels
     from tpu_blosc_torch.filters.match import MATCH_T
@@ -1667,8 +1705,29 @@ def check_and_time_path_h(tbt, x, frames: dict, decoded: dict) -> dict:
           f"turn 2 (mean of 20 launches each, the plain version of 3): " + ", ".join(
               f"{name} {v[0]:.4f} / {v[1]:.4f}" for name, v in runs.items())
           + f"; equal outputs; bound {limit['bound_ms']:.4f} ms by {limit['bound_by']}")
+
+    # the same geometry with synthetic records at 2.2%, offset by offset:
+    # each width the kernel fills in, with one thread a column and with many
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 7)
+    by_offset = {}
+    for d in (1, 3, 4, 16, 256, 1024):
+        synth = synthetic_fill_records(gen, nseg, seg, d, 0.022)
+        got = kernels.match_fill(*synth, nseg, seg)
+        want = ff.match_fill_plain(synth[0], synth[1], synth[3], nseg, seg)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"fill kernel vs plain on synthetic records at d = {d}")
+        del got, want
+        torch.cuda.empty_cache()
+        by_offset[d] = [cuda_ms(lambda: kernels.match_fill(*synth, nseg, seg)) for _ in range(2)]
+        del synth
+    print(f"fill kernel times on synthetic records ({nseg}, {seg}), 2.2% literals, vec16 path, "
+          f"ms as turn 1 / turn 2 (mean of 20 launches each): " + ", ".join(
+              f"d = {d} {v[0]:.4f} / {v[1]:.4f}" for d, v in by_offset.items())
+          + "; equal to the plain version at every offset")
     return {"max_abs_err": err, "ms": ms["fill"], "generic_ms": ms["fill_generic"],
-            "plain_ms": ms["fill_plain"], **limit, "library_ms": None}
+            "plain_ms": ms["fill_plain"], **limit, "library_ms": None,
+            "by_offset_ms": {str(d): statistics.mean(v) for d, v in by_offset.items()}}
 
 
 def check_records_load(tbt, state, x, opts, workdir) -> dict:

@@ -120,6 +120,101 @@ def test_plain_fill_equals_the_xla_program(seg, offsets, mode):
     assert torch.equal(refiltered.view(nseg, seg), filled)
 
 
+def _xla_decode(pos, vals, row_d, nseg, seg, ts, shuffle):
+    """_device_match_decode, called as _decompress_array_rle calls it:
+    padded records and a one-hot select of the offsets present."""
+    present = tuple(sorted(set(row_d.tolist())))
+    cap = jdev._cap_bucket(max(pos.size, 4096))
+    pos_p = np.full(cap, nseg * seg, np.int32)
+    pos_p[: pos.size] = pos
+    vals_p = np.zeros(cap, np.uint8)
+    vals_p[: pos.size] = vals
+    sel = np.zeros((nseg, len(present)), bool)
+    sel[np.arange(nseg), np.searchsorted(np.asarray(present), row_d)] = True
+    return np.asarray(jdev._device_match_decode(
+        jnp.asarray(vals_p), jnp.asarray(pos_p), jnp.asarray(sel), present, nseg, seg,
+        seg * ts, ts, int(shuffle), False))
+
+
+# the offsets by the width the kernel fills them in: bytes, words, uint4
+EDGE_OFFSETS = {"bytes": (1, 2, 3, 6), "words": (4, 12, 24), "uint4": (16, 48, 256, 768, 1024)}
+TILE = kernels.FILL_TILE
+
+
+def _edge_case(seg: int, offsets, seed: int = 0):
+    """One row per offset d and a last row of literals only.  Every row's
+    first d bytes are literal.  Even rows have literals on both sides of
+    each tile edge (TILE - 1, TILE, 2 TILE - 1, 2 TILE), odd rows only
+    TILE - 1 and 2 TILE, so that their second tile holds no record at all;
+    row 0 has 30% literals in its first tile (more than 256 records), the
+    others about one in 500.  Returns (rows, row_d, pos, vals)."""
+    rng = np.random.default_rng(seed)
+    nrows = len(offsets) + 1
+    row_d = np.asarray(list(offsets) + [offsets[0]], np.int32)
+    rows = rng.integers(0, 256, (nrows, seg), dtype=np.uint8)
+    lit = rng.random((nrows, seg)) < 1 / 500
+    lit[0, :TILE] = rng.random(min(seg, TILE)) < 0.3
+    lit[1::2, TILE:2 * TILE] = False
+    for r, d in enumerate(row_d):
+        lit[r, :d] = True
+        edges = (TILE - 1, TILE, 2 * TILE - 1, 2 * TILE) if r % 2 == 0 else (TILE - 1, 2 * TILE)
+        for e in edges:
+            if e < seg:
+                lit[r, e] = True
+    lit[-1] = True
+    for r, d in enumerate(row_d):  # the forward fill, column by column
+        m = -(-seg // d)
+        grid = np.zeros((m, d), np.uint8)
+        grid.reshape(-1)[:seg] = rows[r]
+        flags = np.zeros((m, d), bool)
+        flags.reshape(-1)[:seg] = lit[r]
+        for j in range(1, m):
+            grid[j] = np.where(flags[j], grid[j], grid[j - 1])
+        rows[r] = grid.reshape(-1)[:seg]
+    pos = np.flatnonzero(lit).astype(np.int32)
+    return rows, row_d, pos, rows.reshape(-1)[pos]
+
+
+@pytest.mark.parametrize("width", list(EDGE_OFFSETS))
+@pytest.mark.parametrize("seg", [TILE, TILE + 16, 2 * TILE, 3 * TILE + 5])
+def test_plain_fill_at_the_tile_edges_equals_the_oracle(seg, width):
+    """The cases the kernel's tiles make delicate: records on both sides
+    of a tile edge, a tile with no record, a tile with more than 256, a
+    row of literals only; rows of one tile, a tile and 16 bytes, two tiles,
+    and three tiles and 5 bytes (no multiple of 16).  chip_smoke.py holds
+    the kernel to its plain version on the same cases."""
+    offsets = EDGE_OFFSETS[width]
+    rows, row_d, pos, vals = _edge_case(seg, offsets, seed=seg)
+    nseg = len(row_d)
+    per_row = np.bincount(pos // seg, minlength=nseg)
+    assert per_row[-1] == seg and np.count_nonzero(pos[pos < TILE]) > 256
+    if seg >= 2 * TILE:
+        second = (pos >= seg + TILE) & (pos < seg + 2 * TILE)  # row 1's second tile
+        assert not second.any()
+    got = ff.match_fill(pos, vals, row_d, nseg, seg, "cpu")
+    assert np.array_equal(got.numpy(), rows)
+    for r, d in enumerate(row_d):
+        mine = (pos >= r * seg) & (pos < (r + 1) * seg)
+        assert np.array_equal(
+            tm.reconstruct_match_row(seg, int(d), pos[mine] - r * seg, vals[mine]), rows[r])
+
+
+@pytest.mark.parametrize("seg,width", [(2 * TILE, "bytes"), (2 * TILE, "words"),
+                                       (2 * TILE, "uint4"), (TILE + 16, "uint4")])
+def test_plain_fill_at_the_tile_edges_equals_the_xla_program(seg, width):
+    ts = 4
+    offsets = EDGE_OFFSETS[width]
+    while (len(offsets) + 1) % ts:  # whole blocks of ts rows
+        offsets += offsets[:1]
+    rows, row_d, pos, vals = _edge_case(seg, offsets, seed=seg + 1)
+    nseg = len(row_d)
+    want = _xla_decode(pos, vals, row_d, nseg, seg, ts, tb.Shuffle.SHUFFLE)
+    filled = ff.match_fill(pos, vals, row_d, nseg, seg, "cpu")
+    assert np.array_equal(filled.numpy(), rows)
+    got = tb.filters.unfilter_blocks(filled.view(-1, seg * ts), ts, tb.Shuffle.SHUFFLE)
+    assert np.array_equal(got.numpy().reshape(-1), want)
+
+
 def test_plain_fill_holds_at_2_to_the_23_steps_a_column():
     """One (1, 2**24) row at d = 1: 2**24 steps down the one column, where
     an int32 (index + 1) << 8 | byte key has long overflowed."""
@@ -177,7 +272,33 @@ def test_fill_constants_equal_the_cuda_source():
     assert numbers == kernels.FILL_PATHS
     const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kMaxD"] == kernels.FILL_MAX_D >= max(tm.match_offsets(1 << 20))
+    assert const["kTile"] == kernels.FILL_TILE >= const["kMaxD"]
+    # whole flag words a tile, whole warps a block, and room for 8 blocks
+    # of 64 registers a thread on a multiprocessor's 65,536
+    assert const["kTile"] % 32 == 0 and const["kThreads"] % 32 == 0
+    assert const["kThreads"] * 64 * 8 <= 65536
+    assert kernels.fill_path(const["kTile"], 0) == "vec16"
+    assert kernels.fill_path(const["kTile"] + 5, 0) == kernels.fill_path(4096, 4) == "generic"
     assert "nseg <= INT32_MAX / seg" in src and "seg % 16 == 0" in src
+
+
+def test_tune_fill_builds_its_variants_from_the_source_constants():
+    """tune_fill replaces constexpr ints of csrc/fill.cu by name, leaves
+    the rest of the source alone and refuses a name the source lacks."""
+    import os
+
+    from tpu_blosc_torch import tune_fill
+
+    src = open(os.path.join(kernels.CSRC, "fill.cu")).read()
+    assert tune_fill.variant_source(src, "base:") == ("base", src)
+    name, got = tune_fill.variant_source(src, "wide:kThreads=256,kAhead=2")
+    assert name == "wide" and got != src
+    assert "constexpr int kThreads = 256;" in got and "constexpr int kAhead = 2;" in got
+    assert len(got.splitlines()) == len(src.splitlines())
+    with pytest.raises(SystemExit):
+        tune_fill.variant_source(src, "bad:kNoSuchConstant=1")
+    assert "extern \"C\" int store_rows" in tune_fill.STORES_SOURCE
+    assert tune_fill.main([]) == 1  # no card here
 
 
 # ---------------------------------------------------------------------------

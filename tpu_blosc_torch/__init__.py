@@ -23,10 +23,17 @@ whose CUDA leaves are filtered on the device:
 
     tbt.save_pytree("ckpt.tpbs", {"params": params, "step": 1000})
     state = tbt.load_pytree("ckpt.tpbs", device=True)
+
+The bytes API is tpu_blosc's, name for name:
+
+    frame = tbt.compress(data, tbt.LZ4, 5, tbt.SHUFFLE, 4)
+    assert tbt.decompress(frame) == data
 """
 
 from .api import (
     AUTO_BLOCK_THRESHOLD,
+    compress,
+    compress_batch,
     compress_batch_with_options,
     compress_with_options,
     decompress,
@@ -55,29 +62,86 @@ from .errors import (
     InvalidVersionError,
     SizeMismatchError,
 )
-from .filters import backend_name
-from .format import Codec, Shuffle
-from .options import Options
+from .filters import (
+    backend_name,
+    bit_shuffle,
+    bit_unshuffle,
+    shuffle_buffer,
+    shuffle_bytes,
+    unshuffle_buffer,
+    unshuffle_bytes,
+)
+from .format import (
+    FLAG_BITSHUFFLE,
+    FLAG_MEMCPY,
+    FLAG_SHUFFLE,
+    FLAG_SPLIT,
+    FORMAT_VERSION,
+    HEADER_SIZE,
+    MIN_HEADER_SIZE,
+    VERSION,
+    Codec,
+    Header,
+    Shuffle,
+    parse_header,
+)
+from .options import Options, default_options
 from .stream import StreamReader, StreamWriter, load, load_array, save, save_array
+
+# the codecs' and filters' names as the quick-start spells them
+# (≙ tpu_blosc/__init__.py:88-99)
+BLOSCLZ = Codec.BLOSCLZ
+LZ4 = Codec.LZ4
+LZ4HC = Codec.LZ4HC
+SNAPPY = Codec.SNAPPY
+ZLIB = Codec.ZLIB
+ZSTD = Codec.ZSTD
+NOSHUFFLE = Shuffle.NOSHUFFLE
+SHUFFLE = Shuffle.SHUFFLE
+BITSHUFFLE = Shuffle.BITSHUFFLE
+
+__version__ = VERSION
 
 __all__ = [
     "AUTO_BLOCK_THRESHOLD",
+    "BITSHUFFLE",
+    "BLOSCLZ",
     "BloscError",
     "Codec",
     "CompressionFailedError",
     "DataTooLargeError",
     "DecompressionFailedError",
+    "FLAG_BITSHUFFLE",
+    "FLAG_MEMCPY",
+    "FLAG_SHUFFLE",
+    "FLAG_SPLIT",
+    "FORMAT_VERSION",
+    "HEADER_SIZE",
+    "Header",
     "InvalidCodecError",
     "InvalidDataError",
     "InvalidHeaderError",
     "InvalidVersionError",
+    "LZ4",
+    "LZ4HC",
+    "MIN_HEADER_SIZE",
+    "NOSHUFFLE",
     "Options",
+    "SHUFFLE",
+    "SNAPPY",
     "Shuffle",
     "SizeMismatchError",
     "StreamReader",
     "StreamWriter",
+    "VERSION",
+    "ZLIB",
+    "ZSTD",
     "backend_name",
+    "bit_shuffle",
+    "bit_unshuffle",
+    "compress",
     "compress_array",
+    "compress_batch",
     "compress_batch_with_options",
     "compress_with_options",
     "decompress",
@@ -88,6 +152,7 @@ __all__ = [
     "decompress_range",
     "decompress_range_into",
     "decompress_with_size",
+    "default_options",
     "get_decompressed_size",
     "get_info",
     "load",
@@ -95,11 +160,16 @@ __all__ = [
     "load_leaf",
     "load_pytree",
     "pack_array",
+    "parse_header",
     "save",
     "save_array",
     "save_pytree",
+    "shuffle_buffer",
+    "shuffle_bytes",
     "suggest_codec",
     "suggest_options",
     "unpack_array",
     "unpack_array_rows",
+    "unshuffle_buffer",
+    "unshuffle_bytes",
 ]

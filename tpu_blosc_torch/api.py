@@ -1,8 +1,10 @@
 """Bytes API on the native host codec: compress and decompress frames.
 
 Counterpart: ``tpu_blosc/api.py``: ``AUTO_BLOCK_THRESHOLD`` (:62),
-``compress_with_options`` -> ``_compress_frame_sized`` -> the single-block
-native path (:175-223), the batch calls ``compress_batch_with_options``,
+``compress`` and ``compress_batch`` (:117-139, :260-283; without the
+fast-lane cache of the former), ``compress_with_options`` ->
+``_compress_frame_sized`` -> the single-block native path (:175-223), the
+batch calls ``compress_batch_with_options``,
 ``decompress_batch`` and ``decompress_batch_into`` (:308-409),
 ``decompress`` / ``decompress_with_size`` (:412-507), the range calls
 ``decompress_range`` and ``decompress_range_into`` (:510-687),
@@ -65,6 +67,19 @@ def _coerce_flat(data):
             # non-contiguous, or a dtype the buffer protocol refuses
             return data.tobytes()
     raise TypeError(f"expected bytes-like or ndarray, got {type(data)!r}")
+
+
+def compress(data, codec: Codec = Codec.LZ4, level: int = 5,
+             shuffle: Shuffle = Shuffle.SHUFFLE, type_size: int = 4) -> bytes:
+    """Compress data into a Blosc frame (≙ tpu_blosc/api.py:117-139)."""
+    return compress_with_options(data, Options(codec, level, shuffle, type_size))
+
+
+def compress_batch(items, codec: Codec = Codec.LZ4, level: int = 5,
+                   shuffle: Shuffle = Shuffle.SHUFFLE, type_size: int = 4) -> list[bytes]:
+    """``[compress(x, ...) for x in items]``, the same frames byte for
+    byte, through compress_batch_with_options (≙ tpu_blosc/api.py:260-283)."""
+    return compress_batch_with_options(items, Options(codec, level, shuffle, type_size))
 
 
 def compress_with_options(data, opts: Options) -> bytes:

@@ -32,11 +32,13 @@ __all__ = [
     "filter_bytes",
     "load_target",
     "shuffle_blocks",
+    "shuffle_buffer",
     "shuffle_bytes",
     "target_device",
     "unfilter_blocks",
     "unfilter_bytes",
     "unshuffle_blocks",
+    "unshuffle_buffer",
     "unshuffle_bytes",
 ]
 
@@ -80,6 +82,24 @@ def filter_bytes(src, type_size: int, mode: int) -> np.ndarray:
 def unfilter_bytes(src, type_size: int, mode: int) -> np.ndarray:
     """Inverse of filter_bytes (≙ tpu_blosc/device.py:879-882)."""
     return (bit_unshuffle if mode == Shuffle.BITSHUFFLE else unshuffle_bytes)(src, type_size)
+
+
+def shuffle_buffer(data: bytearray | np.ndarray, type_size: int, mode: Shuffle) -> None:
+    """Filter a bytearray or a uint8 array in place; a mode other than
+    Shuffle.SHUFFLE or Shuffle.BITSHUFFLE leaves it as it is
+    (≙ tpu_blosc/filters/__init__.py:203-208)."""
+    if mode not in (Shuffle.SHUFFLE, Shuffle.BITSHUFFLE):
+        return
+    result = filter_bytes(bytes(data), type_size, mode)
+    data[:] = result.tobytes() if isinstance(data, bytearray) else result
+
+
+def unshuffle_buffer(data: bytearray | np.ndarray, type_size: int, mode: Shuffle) -> None:
+    """Inverse of shuffle_buffer (≙ tpu_blosc/filters/__init__.py:211-216)."""
+    if mode not in (Shuffle.SHUFFLE, Shuffle.BITSHUFFLE):
+        return
+    result = unfilter_bytes(bytes(data), type_size, mode)
+    data[:] = result.tobytes() if isinstance(data, bytearray) else result
 
 
 def filter_blocks(blocks: torch.Tensor, type_size: int, mode: int,

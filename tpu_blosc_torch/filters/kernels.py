@@ -99,6 +99,10 @@ MATCH_MAX_SEG = 2**31 - 1 - 2 * 16384
 # the largest offset the fill kernel takes (csrc/fill.cu kMaxD): the
 # largest candidate of match.match_offsets
 FILL_MAX_D = 1024
+# the positions of a row the fill kernel takes at a time (csrc/fill.cu
+# kTile): what lies on both sides of a multiple of it meets in the
+# kernel's halo
+FILL_TILE = 8192
 # the probe's layout: int32 words per row, rows per 1 MiB tile
 PROBE_LANES = 512
 PROBE_TILE_ROWS = 512

@@ -24,8 +24,10 @@ from dataclasses import dataclass
 
 from .errors import InvalidHeaderError, InvalidVersionError
 
+VERSION = "1.1.0"
 FORMAT_VERSION = 2
 HEADER_SIZE = 16
+MIN_HEADER_SIZE = 16
 MAX_UINT32 = 0xFFFFFFFF
 
 _HEADER_STRUCT = struct.Struct("<BBBBIII")

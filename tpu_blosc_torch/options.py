@@ -35,3 +35,8 @@ class Options:
         if type_size == self.type_size and level == self.level:
             return self
         return replace(self, type_size=type_size, level=level)
+
+
+def default_options() -> Options:
+    """LZ4, level 5, byte shuffle, type size 4 (≙ tpu_blosc/options.py:45-47)."""
+    return Options()
