@@ -89,7 +89,20 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
     strategy="records") of a checkpoint of one of F's leaves and 64 MiB
     of C's tensor;
 11. suggest_codec and suggest_options on A's, B's and random bytes;
-12. prints the kernels' JSON line (each kernel's launches on the main
+12. main path I: in this process, a group of one rank over NCCL on cuda:0
+    (dist.initialize_distributed, a FileStore in a temporary directory):
+    compress_chunked_mesh with statistics and decompress_chunked_mesh of
+    A's ramp plus a 123-byte tail (byte shuffle) and of D's linspace (bit
+    shuffle), and compress_chunked_multihost / decompress_chunked_multihost
+    of the same bytes; the calls and, one by one, the stages are timed;
+13. main path J: the script starts itself twice (--rank r --world 2), two
+    ranks over Gloo that share the card: (a) compress_chunked_mesh and
+    decompress_chunked_mesh of I's first stream; (b) save_pytree_sharded
+    of F's state cut to its first four layers (full width; every 2-D
+    weight a DTensor Shard(0) over the ranks with CUDA local shards, the
+    rest plain tensors), and the same from CPU local shards; then this
+    process loads the set with load_pytree_sharded and load_leaf_sharded;
+14. prints the kernels' JSON line (each kernel's launches on the main
     paths, its time, its plain version's, the time of the one PyTorch call
     that computes the same function where there is one, and the least
     time the card could take: see ``bound``) and, last, the ok line.
@@ -108,11 +121,19 @@ slice.  H's tensors must equal C's tensor and the transfer decode, and
 the checkpoint's leaves must come back exactly, the dense one by the
 transfer route.  F's file must equal the one save_pytree
 writes from the same tree on the CPU, and every load must give every
-leaf back exactly.  Every kernel must be launched by the path it serves
+leaf back exactly.  I's and each of J's frames must equal the host path's
+frame and decode to the bytes, their MeshStats a NumPy oracle's (the
+sampled byte histogram and the per-block diff counts of the host-filtered
+stream); each file of J's set must equal the one its rank writes from CPU
+shards, and every loaded leaf the tensor it was made from; a rank that
+fails or hangs fails the run.  Every kernel must be launched by the path it serves
 (A, B and C the shuffle pair on its vec16 path, C the mask and the count
 kernel of the match strategy on theirs, D and E the bit-shuffle pair, F
 the shuffle pair, G the shuffle kernel, the run-count and the run-record
-kernel, H the fill and the unshuffle kernel): the launch counts are reset just before each
+kernel, H the fill and the unshuffle kernel, I the shuffle pair, the
+bit-shuffle pair and the run-count kernel, each of J's ranks the shuffle
+pair and the run-count kernel in (a) and the shuffle kernel once for each
+of its CUDA records over 4 MiB in (b)): the launch counts are reset just before each
 path and read just after.  Any failure raises, so the script exits
 non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
@@ -1075,10 +1096,10 @@ GPT2_MEDIUM = {"n_layer": 24, "n_embd": 1024, "vocab_size": 50257, "n_positions"
 GPT2_TENSORS, GPT2_VALUES = 292, 354_823_168
 
 
-def gpt2_medium_state(seed: int) -> dict:
+def gpt2_medium_state(seed: int, n_layer: int | None = None) -> dict:
     """The parameter shapes of the public gpt2-medium config (292 tensors,
     354,823,168 values), N(0, 0.02) in bfloat16, made on the card from
-    ``seed``, in the original GPT-2 names."""
+    ``seed``, in the original GPT-2 names; ``n_layer`` cuts the depth."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     c = GPT2_MEDIUM
@@ -1098,7 +1119,7 @@ def gpt2_medium_state(seed: int) -> dict:
                 "mlp": {"c_fc": dense(e, 4 * e), "c_proj": dense(4 * e, e)}}
 
     params = {"wte": w(c["vocab_size"], e), "wpe": w(c["n_positions"], e),
-              "h": [layer() for _ in range(c["n_layer"])],
+              "h": [layer() for _ in range(c["n_layer"] if n_layer is None else n_layer)],
               "ln_f": {"g": w(e), "b": w(e)}}
     rng = torch.tensor([seed, seed + 1], dtype=torch.int64, device=DEVICE)
     return {"params": params, "step": 1000, "rng": rng}
@@ -1766,6 +1787,409 @@ def check_records_load(tbt, state, x, opts, workdir) -> dict:
     return launches
 
 
+GROUP_TIMEOUT_S = 120
+J_WORLD = 2
+J_LAYERS = 4
+J_LEAF = "params/h/2/mlp/c_fc/w"
+TAIL_I = bytes(range(123))
+
+
+def mesh_stats_oracle(tbt, data: bytes, opts, world: int):
+    """(histogram, block_diffs, sample_bytes) of ``data``'s full blocks as
+    ``world`` ranks sample them, in NumPy from the host-filtered stream
+    (after tpu_blosc/dist/mesh.py:298-310 and :257-277): rank d holds
+    rows [d*per, (d+1)*per) of the batch padded with zero rows, samples
+    512-byte chunks at a stride that keeps about 256 KiB (the whole shard
+    when its size is no multiple of 512), and only bytes of real rows
+    count."""
+    from tpu_blosc_torch.chunk import choose_block_size
+
+    raw = np.frombuffer(data, np.uint8)
+    bs = choose_block_size(raw.size, opts.type_size, opts.block_size)
+    nb_full = raw.size // bs
+    rows = np.stack([tbt.filters.filter_bytes(raw[i * bs : (i + 1) * bs], opts.type_size,
+                                              opts.shuffle) for i in range(nb_full)])
+    diffs = (rows[:, 1:] != rows[:, :-1]).sum(axis=1).astype(np.int32)
+    per = -(-nb_full // world)
+    hist = np.zeros(256, np.int64)
+    for d in range(world):
+        shard = rows[d * per : (d + 1) * per].reshape(-1)  # the real rows lead the shard
+        if per * bs % 512 == 0:
+            stride = max(1, per * bs // 512 // ((256 << 10) // 512))
+            starts = np.arange(0, per * bs // 512, stride) * 512
+            sample = np.concatenate([shard[s : s + 512] for s in starts])
+        else:
+            sample = shard
+        hist += np.bincount(sample, minlength=256)
+    return hist.astype(np.int32), diffs, int(hist.sum())
+
+
+def nonzero(launches: dict) -> dict:
+    """The kernels a path launched, for a line one can read."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def check_mesh_stats(tbt, name: str, stats, data: bytes, opts, world: int) -> None:
+    hist, diffs, sample_bytes = mesh_stats_oracle(tbt, data, opts, world)
+    check(np.array_equal(stats.histogram, hist) and stats.histogram.dtype == np.int32,
+          f"{name}: MeshStats.histogram equals the NumPy oracle's for {world} shards")
+    check(np.array_equal(stats.block_diffs, diffs),
+          f"{name}: MeshStats.block_diffs equals the NumPy oracle's")
+    check(stats.sample_bytes == sample_bytes == int(stats.histogram.sum()),
+          f"{name}: histogram.sum() == sample_bytes == {sample_bytes}")
+
+
+def start_group(device, store_file: str, rank: int, world: int) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpu_blosc_torch.dist import initialize_distributed
+
+    initialize_distributed(device, store=dist.FileStore(store_file, world), rank=rank,
+                           world_size=world,
+                           timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def path_i_inputs(cases) -> list:
+    """(name, bytes, options) of path I's two streams: A's ramp with a
+    123-byte tail under the byte shuffle, D's linspace under the bit
+    shuffle."""
+    (_, x_a, opts_a), (_, x_d, opts_d) = cases[0], cases[2]
+    return [("I ramp+tail byte shuffle", x_a.cpu().numpy().tobytes() + TAIL_I, opts_a),
+            ("I linspace bit shuffle", x_d.cpu().numpy().tobytes(), opts_d)]
+
+
+def run_path_i(tbt, inputs) -> list:
+    """Path I: in this process, one rank over NCCL on cuda:0 (the group is
+    up already).  compress_chunked_mesh with statistics,
+    decompress_chunked_mesh and the multihost pair on each stream."""
+    from tpu_blosc_torch.dist import mesh as dmesh, multihost as dmh
+
+    results = []
+    for _, data, opts in inputs:
+        frame, stats = dmesh.compress_chunked_mesh(data, opts, return_stats=True)
+        decoded = dmesh.decompress_chunked_mesh(frame)
+        mh_stats: dict = {}
+        mh_frame = dmh.compress_chunked_multihost(len(data), data, opts, stats=mh_stats)
+        mh_decoded = dmh.decompress_chunked_multihost(mh_frame)
+        torch.cuda.synchronize()
+        results.append((frame, stats, decoded, mh_frame, mh_stats, mh_decoded))
+    return results
+
+
+def check_and_time_path_i(tbt, inputs, results, launches: dict) -> dict:
+    """Hold path I's results to the host path and the oracle, then time the
+    calls and, for the byte-shuffled stream, the stages one by one."""
+    import torch.distributed as dist
+
+    from tpu_blosc_torch import device as dev
+    from tpu_blosc_torch.chunk import choose_block_size
+    from tpu_blosc_torch.dist import _group, mesh as dmesh, multihost as dmh
+    from tpu_blosc_torch.filters import rle
+
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and _group.comm_device().type == "cuda", "I: one rank over NCCL, collectives on the card")
+    for kernel, count in (("shuffle_blocks", 1), ("unshuffle_blocks", 1), ("seg_run_counts", 2),
+                          ("bit_shuffle_blocks", 1), ("bit_unshuffle_blocks", 1)):
+        check(launches[kernel] == count, f"I: {kernel} launched {count} time(s) ({launches})")
+    for kernel in ("shuffle_blocks", "unshuffle_blocks", "seg_run_counts"):
+        check(launches[f"{kernel}.vec16"] == launches[kernel],
+              f"I: {kernel} on its vec16 path ({launches})")
+    host_frames = []
+    for (name, data, opts), (frame, stats, decoded, mh_frame, mh_stats, mh_decoded) in zip(
+            inputs, results):
+        host_frame = tbt.compress_with_options(data, opts)
+        host_frames.append(host_frame)
+        check(frame == host_frame, f"{name}: the mesh frame == compress_with_options' frame")
+        check(decoded == data, f"{name}: decompress_chunked_mesh gives the bytes back")
+        check_mesh_stats(tbt, name, stats, data, opts, 1)
+        check(mh_frame == host_frame, f"{name}: the multihost frame == the host frame")
+        check(mh_decoded == (data, 0, len(data)),
+              f"{name}: decompress_chunked_multihost gives the whole stream")
+        check(mh_stats["num_processes"] == 1 and mh_stats["local_bytes"] == len(data),
+              f"{name}: the multihost stats record ({mh_stats})")
+
+    name, data, opts = inputs[0]
+    frame = results[0][0]
+    ts, mode = opts.type_size, opts.shuffle
+    raw = np.frombuffer(data, np.uint8)
+    bs = choose_block_size(raw.size, ts, opts.block_size)
+    nb_full = raw.size // bs
+    body = nb_full * bs
+    blocks = raw[:body].reshape(nb_full, bs)
+    t = {"compress_chunked_mesh": host_s(lambda: dmesh.compress_chunked_mesh(data, opts)),
+         "compress_chunked_mesh with stats": host_s(
+             lambda: dmesh.compress_chunked_mesh(data, opts, return_stats=True)),
+         "decompress_chunked_mesh": host_s(lambda: dmesh.decompress_chunked_mesh(frame)),
+         "compress_chunked_multihost": host_s(
+             lambda: dmh.compress_chunked_multihost(len(data), data, opts)),
+         "compress_with_options": host_s(lambda: tbt.compress_with_options(data, opts))}
+    card = torch.device(DEVICE)
+    st = {"copy to the card": host_s(lambda: dmesh.rows_to_device(blocks, card))}
+    x = dmesh.rows_to_device(blocks, card)
+    st["filter kernel"] = host_s(lambda: tbt.filters.filter_blocks(x, ts, mode))
+    y = tbt.filters.filter_blocks(x, ts, mode)
+    st["count kernel"] = host_s(lambda: rle.seg_run_counts(y))
+    st["sample and bincount"] = host_s(lambda: dmesh.sample_histogram(y))
+    _, hist, diffs = dmesh.rank_step(x, ts, mode)
+    st["all_reduce"] = host_s(lambda: dist.all_reduce(hist.clone()))
+    st["all_gather"] = host_s(lambda: _group.all_gather_rows(diffs))
+    st["copy back"] = host_s(lambda: y.cpu())
+    filtered = np.concatenate([y.cpu().numpy().reshape(-1),
+                               tbt.filters.filter_bytes(raw[body:], ts, mode)])
+    st["host codec"] = host_s(lambda: dev.compress_filtered_slots(filtered, opts, bs))
+    slots = dev.compress_filtered_slots(filtered, opts, bs)
+    st["payload list"] = host_s(lambda: dmh.slot_payloads(*slots))
+    payloads, memf = dmh.slot_payloads(*slots)
+    st["payload gather"] = host_s(lambda: dmh.allgather_payloads(payloads, memf))
+    st["frame"] = host_s(lambda: dmh.assemble_payload_frame(opts, raw.size, bs, payloads, memf))
+    check(dmh.assemble_payload_frame(opts, raw.size, bs, payloads, memf) == frame,
+          "I: the stages, run one by one, give the frame")
+    samp_bytes = int(results[0][1].sample_bytes)
+    ev = {"filter kernel": cuda_ms(lambda: tbt.filters.filter_blocks(x, ts, mode)),
+          "count kernel": cuda_ms(lambda: rle.seg_run_counts(y)),
+          "count plain": cuda_ms(lambda: rle.seg_run_counts_plain(y), iters=3, warmup=1),
+          "sample and bincount": cuda_ms(lambda: dmesh.sample_histogram(y)),
+          "all_reduce": cuda_ms(lambda: dist.all_reduce(hist.clone())),
+          "all_gather": cuda_ms(lambda: _group.all_gather_rows(diffs))}
+    gb = raw.size / 1e9
+    print(f"{name}: {raw.size} bytes, {nb_full} blocks of {bs} and a {raw.size - body}-byte "
+          f"tail, ratio {raw.size / len(frame):.2f}; one rank over NCCL, medians of 5: "
+          + ", ".join(f"{k} {gb / v:.3f} GB/s ({v * 1e3:.3f} ms)" for k, v in t.items())
+          + f"; card {gpu_line()}")
+    print(f"I stages (ms, medians of 5, host clock, each synchronised; card {gpu_line()}): "
+          + " + ".join(f"{k} {v * 1e3:.3f}" for k, v in st.items())
+          + f"; by CUDA events (mean of 20): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ev.items())
+          + f"; the sample is {samp_bytes} bytes of {body}")
+    return {"stage_ms": {k: v * 1e3 for k, v in st.items()}, "event_ms": ev,
+            "host_frame": host_frames[0]}
+
+
+def j_state(seed: int) -> dict:
+    """Path J's state: F's, cut to the first J_LAYERS transformer blocks
+    (full width; wte, wpe and ln_f stay)."""
+    return gpt2_medium_state(seed, n_layer=J_LAYERS)
+
+
+def j_device_route_records(state: dict, rank: int, world: int, threshold: int) -> int:
+    """How many of ``rank``'s records of path J's sharded save take the
+    device route: local shards of the 2-D weights, and on rank 0 the plain
+    tensors, of more than ``threshold`` bytes."""
+    count = 0
+    for x in tree_leaves(state):
+        if not isinstance(x, torch.Tensor):
+            continue
+        if x.dim() == 2:
+            rows = -(-x.shape[0] // world)
+            local_rows = max(0, min(x.shape[0], (rank + 1) * rows) - rank * rows)
+            count += local_rows * x.shape[1] * x.element_size() > threshold
+        elif rank == 0:
+            count += x.numel() * x.element_size() > threshold
+    return count
+
+
+def j_sharded_tree(state: dict, mesh, rank: int, world: int, device: str):
+    """``state`` with every 2-D weight as a DTensor Shard(0) over ``mesh``
+    whose local shard is this rank's rows on ``device``; the other leaves
+    plain tensors there."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def place(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.dim() != 2:
+            return x.to(device)
+        rows = -(-x.shape[0] // world)
+        local = x[rank * rows : (rank + 1) * rows].to(device).contiguous()
+        return DTensor.from_local(local, mesh, [Shard(0)], run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    return tree_map(place, state)
+
+
+def j_mesh_launches(n: int, opts, rank: int, world: int) -> dict:
+    """The launches of path J (a) on ``rank``, from the two partitions of
+    the blocks: the filter step takes rows [rank*per, (rank+1)*per) of the
+    full blocks in one shuffle launch and one count launch, the codec stage
+    filters the run of its process_slice before those rows and the run
+    after (a launch each, where there is one), and the decode unshuffles
+    the rank's shard of the blocks, all of them compressed, in one."""
+    from tpu_blosc_torch.chunk import choose_block_size
+    from tpu_blosc_torch.dist.multihost import process_slice
+
+    bs = choose_block_size(n, opts.type_size, opts.block_size)
+    nb_full = n // bs
+    per = -(-nb_full // world)
+    lo_byte, hi_byte = process_slice(n, bs, rank, world)
+    lo, hi = lo_byte // bs, min(hi_byte, nb_full * bs) // bs
+    a0, a1 = max(lo, rank * per), min(hi, (rank + 1) * per)
+    extra = 1 if a1 <= a0 else (lo < a0) + (a1 < hi)
+    return {"shuffle_blocks": 1 + (extra if hi > lo else 0), "seg_run_counts": 1,
+            "unshuffle_blocks": 1}
+
+
+def worker_main(rank: int, world: int, store_file: str, workdir: str) -> int:
+    """One rank of path J: Gloo collectives, the shared card for the data."""
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+    from torch.distributed.tensor import init_device_mesh
+
+    import tpu_blosc_torch as tbt
+    from tpu_blosc_torch import checkpoint
+    from tpu_blosc_torch.dist import _group, mesh as dmesh
+    from tpu_blosc_torch.filters import kernels
+
+    check("jax" not in sys.modules, "the port imported jax")
+    torch.cuda.set_device(0)
+    start_group("cpu", store_file, rank, world)
+    try:
+        check(dist.get_backend() == "gloo" and _group.comm_device().type == "cpu"
+              and (_group.rank(), _group.world_size()) == (rank, world),
+              f"J rank {rank}: {world} ranks over Gloo")
+        name = f"J rank {rank}"
+        # (a) one frame from both ranks
+        data = np.arange(16 * MIB, dtype=np.float32).tobytes() + TAIL_I
+        opts = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE,
+                           type_size=4)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        frame, stats = dmesh.compress_chunked_mesh(data, opts, return_stats=True)
+        t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = dmesh.decompress_chunked_mesh(frame)
+        t_dec = time.perf_counter() - t0
+        launches_a = dict(kernels.launches)
+        check(frame == tbt.compress_with_options(data, opts),
+              f"{name}: the mesh frame == compress_with_options' frame")
+        check(decoded == data, f"{name}: decompress_chunked_mesh gives the bytes back")
+        check_mesh_stats(tbt, name, stats, data, opts, world)
+        for kernel, count in j_mesh_launches(len(data), opts, rank, world).items():
+            check(launches_a[kernel] == launches_a[f"{kernel}.vec16"] == count,
+                  f"{name}: {kernel} launched {count} time(s) by the mesh pair, on its "
+                  f"vec16 path ({launches_a})")
+        with open(os.path.join(workdir, f"j_frame.r{rank}"), "wb") as f:
+            f.write(frame)
+        t_mesh2 = host_s(lambda: dmesh.compress_chunked_mesh(data, opts), reps=3)
+
+        # (b) a sharded checkpoint: CUDA local shards, then CPU ones
+        state = j_state(SEED)
+        opts_f = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE)
+        prefix = os.path.join(workdir, "j_ckpt")
+        tree = j_sharded_tree(state, init_device_mesh(DEVICE, (world,)), rank, world, DEVICE)
+        dist.barrier()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        checkpoint.save_pytree_sharded(prefix, tree, opts_f)
+        t_save = time.perf_counter() - t0
+        launches_b = dict(kernels.launches)
+        expected = j_device_route_records(state, rank, world, tbt.AUTO_BLOCK_THRESHOLD)
+        check(expected >= 1 and launches_b["shuffle_blocks"] == expected
+              and launches_b["shuffle_blocks.vec16"] == expected,
+              f"{name}: the shuffle kernel launched once for each of the {expected} CUDA "
+              f"records over {tbt.AUTO_BLOCK_THRESHOLD} bytes ({launches_b})")
+        cpu_tree = j_sharded_tree(state, init_device_mesh("cpu", (world,)), rank, world, "cpu")
+        t0 = time.perf_counter()
+        checkpoint.save_pytree_sharded(prefix + "_cpu", cpu_tree, opts_f)
+        t_cpu = time.perf_counter() - t0
+        mine, plain = (f"{p}.p{rank}.tpbs" for p in (prefix, prefix + "_cpu"))
+        with open(mine, "rb") as a, open(plain, "rb") as b:
+            same = a.read() == b.read()
+        check(same, f"{name}: its file equals the one it writes from CPU local shards")
+        os.remove(plain)
+        dist.barrier()
+        local_bytes = sum(
+            x.to_local().numel() * x.element_size() if hasattr(x, "to_local")
+            else x.numel() * x.element_size() * (rank == 0)
+            for x in tree_leaves(tree) if isinstance(x, torch.Tensor))
+        record = {"rank": rank, "launches_a": launches_a, "launches_b": launches_b,
+                  "mesh_ms": t_mesh * 1e3, "mesh_ms_median3": t_mesh2 * 1e3,
+                  "mesh_decode_ms": t_dec * 1e3, "save_s": t_save, "save_cpu_s": t_cpu,
+                  "local_bytes": local_bytes, "file_bytes": os.path.getsize(mine),
+                  "device_route_records": expected}
+        with open(os.path.join(workdir, f"j.r{rank}.json"), "w") as f:
+            json.dump(record, f)
+        # one write, so that the ranks' lines do not run into each other
+        sys.stdout.write(
+            f"{name} of {world} (Gloo, cuda:0): compress_chunked_mesh {t_mesh * 1e3:.3f} ms "
+            f"first, {t_mesh2 * 1e3:.3f} ms median of 3, decompress_chunked_mesh "
+            f"{t_dec * 1e3:.3f} ms, launches {nonzero(launches_a)}; save_pytree_sharded of "
+            f"{local_bytes} local bytes into {record['file_bytes']} in {t_save:.3f} s "
+            f"(from CPU shards {t_cpu:.3f} s), {expected} record(s) on the device route, "
+            f"launches {nonzero(launches_b)}\n")
+        sys.stdout.flush()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_path_j(workdir: str) -> list:
+    """Path J: start this script once per rank, wait, and read what the
+    ranks wrote.  A rank that fails or outlasts its time fails the run;
+    every rank is stopped before this returns."""
+    store = os.path.join(workdir, "store_j")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                               "--world", str(J_WORLD), "--store", store, "--workdir", workdir])
+             for r in range(J_WORLD)]
+    try:
+        deadline = time.monotonic() + 420
+        for r, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "no exit code in time"
+            check(rc == 0, f"J: rank {r} exited with 0 ({rc})")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    records = []
+    for r in range(J_WORLD):
+        with open(os.path.join(workdir, f"j.r{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def check_path_j(tbt, records: list, host_frame: bytes, workdir: str) -> None:
+    """The ranks' frames against each other and the host frame; the set
+    they wrote, loaded here, against the tensors it was made from."""
+    from tpu_blosc_torch import checkpoint
+
+    for r in range(J_WORLD):
+        with open(os.path.join(workdir, f"j_frame.r{r}"), "rb") as f:
+            check(f.read() == host_frame, f"J: rank {r}'s frame equals the host frame")
+    state = j_state(SEED)
+    prefix = os.path.join(workdir, "j_ckpt")
+    t0 = time.perf_counter()
+    loaded = checkpoint.load_pytree_sharded(prefix, J_WORLD)
+    t_load = time.perf_counter() - t0
+    want, got = tree_leaves(state), tree_leaves(loaded)
+    check(len(got) == len(want), "J: the loaded tree has every leaf")
+    for x, y in zip(want, got):
+        if isinstance(x, torch.Tensor):
+            check(y.device.type == "cpu" and y.dtype == x.dtype and torch.equal(x.cpu(), y),
+                  "J: load_pytree_sharded gives the leaf back exactly")
+        else:
+            check(x == y, f"J: load_pytree_sharded gives {x!r} back")
+    node = state
+    for seg in J_LEAF.split("/"):
+        node = node[int(seg)] if isinstance(node, list) else node[seg]
+    check(torch.equal(checkpoint.load_leaf_sharded(prefix, J_WORLD, J_LEAF), node.cpu()),
+          f"J: load_leaf_sharded of {J_LEAF}")
+    nbytes = sum(x.numel() * x.element_size() for x in want if isinstance(x, torch.Tensor))
+    size = sum(rec["file_bytes"] for rec in records)
+    print(f"J sharded checkpoint: {J_LAYERS} layers, wte, wpe, ln_f at gpt2-medium's width, "
+          f"{nbytes} bytes into {size} bytes in {J_WORLD} files, ratio {nbytes / size:.3f}; "
+          f"save_pytree_sharded {max(rec['save_s'] for rec in records):.3f} s (the slower "
+          f"rank), load_pytree_sharded {t_load:.3f} s = {nbytes / 1e9 / t_load:.3f} GB/s; "
+          f"card {gpu_line()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; it runs only on a GPU",
@@ -1869,13 +2293,40 @@ def main() -> int:
 
     launches_adv = phase_advisors(tbt, rng, cases[:2])
     print(f"advisors, launches: {launches_adv}")
+    del state
+    torch.cuda.empty_cache()
+
+    import torch.distributed as dist
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        start_group(None, os.path.join(workdir, "store_i"), 0, 1)
+        try:
+            inputs_i = path_i_inputs(cases)
+            kernels.reset_launches()
+            results_i = run_path_i(tbt, inputs_i)
+            launches_i = dict(kernels.launches)
+            print(f"main path I, launches: {nonzero(launches_i)}")
+            dist_i = check_and_time_path_i(tbt, inputs_i, results_i, launches_i)
+            del results_i
+        finally:
+            dist.destroy_process_group()
+        sys.stdout.flush()
+        records_j = run_path_j(workdir)
+        launches_j = [rec[key] for rec in records_j for key in ("launches_a", "launches_b")]
+        print(f"main path J, launches by rank, (a) the frame and (b) the sharded save: "
+              f"{[nonzero(c) for c in launches_j]}")
+        check_path_j(tbt, records_j, dist_i["host_frame"], workdir)
+    finally:
+        shutil.rmtree(workdir)
 
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
     # the kernels' launches in the main paths A, B, D, E, C, G, H (the two
-    # decodes, and the checkpoint load) and F
+    # decodes, and the checkpoint load), F, I and J (each rank's two parts)
     main_runs = [counts for _, _, counts in results] + [
-        launches_c, launches_g, launches_h, launches_h_load, launches_f]
+        launches_c, launches_g, launches_h, launches_h_load, launches_f, launches_i,
+        *launches_j]
 
     def shuffle_entry(kernel: str, key: str, replaces: str) -> dict:
         """The JSON entry of one shuffle kernel; ``key`` names its times."""
@@ -1936,7 +2387,8 @@ def main() -> int:
         bit_entry("tpbt_bitshuffle_blocks", "bit_shuffle_blocks", "shuffle", 65),
         bit_entry("tpbt_bitunshuffle_blocks", "bit_unshuffle_blocks", "unshuffle", 74),
         {"name": "tpbt_seg_run_counts", "route": "cuda", "source": src + "rle.cu",
-         "replaces": "tpu_blosc/device.py:165", "launches": launches_g["seg_run_counts"],
+         "replaces": "tpu_blosc/device.py:165",
+         "launches": sum(c["seg_run_counts"] for c in main_runs),
          **rle_g["counts"],
          "max_abs_err": max(rle_k["counts_max_abs_err"], rle_g["counts"]["max_abs_err"])},
         {"name": "tpbt_rows_rle", "route": "cuda", "source": src + "rle.cu",
@@ -1955,5 +2407,19 @@ def main() -> int:
     return 0
 
 
+def parse_args():
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port's main paths on one GPU.")
+    parser.add_argument("--rank", type=int, help="run as this rank of path J (set by the script)")
+    parser.add_argument("--world", type=int, default=J_WORLD)
+    parser.add_argument("--store", help="path J's FileStore")
+    parser.add_argument("--workdir", help="path J's directory")
+    return parser.parse_args()
+
+
 if __name__ == "__main__":
+    args = parse_args()
+    if args.rank is not None:
+        sys.exit(worker_main(args.rank, args.world, args.store, args.workdir))
     sys.exit(main())

@@ -24,6 +24,11 @@ whose CUDA leaves are filtered on the device:
     tbt.save_pytree("ckpt.tpbs", {"params": params, "step": 1000})
     state = tbt.load_pytree("ckpt.tpbs", device=True)
 
+Several processes, one device each, write one frame or one checkpoint
+together over ``torch.distributed`` (``tpu_blosc_torch.dist``,
+``checkpoint.save_pytree_sharded``; reached as submodules, as in
+tpu_blosc).
+
 The bytes API is tpu_blosc's, name for name:
 
     frame = tbt.compress(data, tbt.LZ4, 5, tbt.SHUFFLE, 4)

@@ -1,6 +1,7 @@
-"""Compressed checkpoints of nested tensor structures (single process).
+"""Compressed checkpoints of nested tensor structures, written by one
+process or, sharded, by every process of a group.
 
-Counterpart: ``tpu_blosc/checkpoint.py:1-395``; the files are byte for
+Counterpart: ``tpu_blosc/checkpoint.py``; the files are byte for
 byte the JAX package's for the same tree, and each package loads the
 other's.  A checkpoint is a stream (stream.py): record 0 is a JSON
 manifest of the structure, with each array leaf's NumPy dtype name
@@ -26,13 +27,22 @@ tensors and NumPy arrays are "host" records, compressed in batches of up
 to _BATCH_WINDOW_BYTES.  A load onto a device decodes leaf k+1 on a
 worker thread while this thread copies leaf k to the device.
 
-The multi-process sharded checkpoints of the JAX package
-(tpu_blosc/checkpoint.py:400-670) are not ported.
+Sharded (≙ tpu_blosc/checkpoint.py:396-670): every process of a
+``torch.distributed`` group calls ``save_pytree_sharded(prefix, tree)``
+and process p writes ``{prefix}.p{p}.tpbs``.  A leaf sharded over the
+processes is a ``torch.distributed.tensor.DTensor``: each process writes
+its local shard as one record and the shard's span of the global shape
+into its manifest, a shard replicated over a mesh dimension once.  Plain
+tensors, arrays and values are replicated: process 0 writes them.
+``load_pytree_sharded(prefix, num_processes)`` and ``load_leaf_sharded``
+put the leaves together again from all the files, as CPU tensors, in any
+one process.
 """
 
 from __future__ import annotations
 
 import json
+import sys
 
 import numpy as np
 import torch
@@ -368,3 +378,238 @@ def load_leaf(path, key_path: str, device=False):
             return _read_leaf(r, i + 1, dtype, shape)
 
         return _decode(node, fetch, target)
+
+
+# ---------------------------------------------------------------------------
+# multi-process sharded checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(obj) -> bool:
+    """A DTensor can only exist once its module has been imported, so the
+    module is looked up, never imported here."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(obj, mod.DTensor)
+
+
+def _shard_span(obj) -> tuple[list, bool]:
+    """([[start, stop], ...] of this process's local shard of the DTensor
+    ``obj`` in its global shape, whether this process is the one that
+    writes it).
+
+    ``Shard(dim)`` over a mesh dimension of k ranks splits what the
+    dimensions before it left of ``dim`` as ``torch.chunk`` does: pieces
+    of ceil(size / k), a short or empty last one.  Of the ranks that hold
+    the same shard (a ``Replicate`` placement), the one at coordinate 0 of
+    every replicated mesh dimension writes it.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = obj.device_mesh
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this process is not in the DTensor's device mesh")
+    span = [[0, int(d)] for d in obj.shape]
+    writer = True
+    for m, placement in enumerate(obj.placements):
+        if type(placement) is Shard:
+            start, stop = span[placement.dim]
+            size = stop - start
+            piece = -(-size // mesh.size(m))
+            span[placement.dim] = [start + min(coord[m] * piece, size),
+                                   start + min((coord[m] + 1) * piece, size)]
+        elif type(placement) is Replicate:
+            writer = writer and coord[m] == 0
+        else:
+            raise TypeError(f"unsupported DTensor placement for a checkpoint: {placement!r}")
+    return span, writer
+
+
+def _fully_replicated(obj) -> bool:
+    """Every process holds the whole DTensor: no ``Shard`` placement lies
+    on a mesh dimension of more than one rank."""
+    _shard_span(obj)  # refuses placements that are neither
+    return all(obj.device_mesh.size(m) == 1 or placement.is_replicate()
+               for m, placement in enumerate(obj.placements))
+
+
+def _encode_sharded(obj, leaves: list, pid: int):
+    if _is_dtensor(obj):
+        if obj.numel() == 0:  # no record, only the metadata
+            return {"t": "array0", "dtype": dtypes.manifest_name(obj.dtype),
+                    "shape": list(obj.shape)}
+        if _fully_replicated(obj):
+            obj = obj.to_local()  # the whole tensor: process 0 stores it
+        else:
+            leaves.append(("sharded", obj))
+            return {"t": "sharded_array", "i": len(leaves) - 1,
+                    "dtype": dtypes.manifest_name(obj.dtype), "shape": list(obj.shape)}
+    if isinstance(obj, np.generic):
+        obj = np.asarray(obj)
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        node = _encode(obj, [])
+        if node["t"] == "array":
+            leaves.append(("replicated", obj if pid == 0 else None))
+            node["i"] = len(leaves) - 1
+        return node
+    if isinstance(obj, dict):
+        items = []
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"checkpoint dict keys must be strings, got {type(k)!r}")
+            items.append([k, _encode_sharded(v, leaves, pid)])
+        return {"t": "dict", "items": items}
+    if isinstance(obj, (list, tuple)):
+        return {
+            "t": "list" if isinstance(obj, list) else "tuple",
+            "items": [_encode_sharded(v, leaves, pid) for v in obj],
+        }
+    return _encode(obj, leaves)  # a JSON value, or TypeError
+
+
+def save_pytree_sharded(path_prefix, tree, opts: Options | None = None,
+                        checksum: bool = False) -> None:
+    """Multi-process checkpoint: every process writes its own shards.
+
+    Call from ALL processes with the same arguments.  Process p (its rank
+    in the default group; 0 with no group) writes
+    ``{path_prefix}.p{p}.tpbs`` with one compressed record per local shard
+    of each sharded leaf (a DTensor; a CUDA shard is filtered on its
+    device, as compress_array does), and the global dtype and shape and
+    the shards' spans in the manifest.  Replicated leaves and host values
+    are written by process 0 only.  load_pytree_sharded reassembles from
+    all files.
+    """
+    from .dist import _group
+
+    pid = _group.rank()
+    leaves: list = []
+    skeleton = _encode_sharded(tree, leaves, pid)
+    records: list = []
+    manifest_leaves = []
+    for kind, obj in leaves:
+        if kind == "replicated":
+            manifest_leaves.append({"k": "replicated", "n": 1 if obj is not None else 0})
+            if obj is not None:
+                records.append(("device" if _on_cuda(obj) else "host", obj))
+            continue
+        span, writer = _shard_span(obj)
+        local = obj.to_local()
+        if tuple(local.shape) != tuple(b - a for a, b in span):
+            raise ValueError(
+                f"a DTensor's local shard is {tuple(local.shape)}, its placements "
+                f"{obj.placements} give the span {span}"
+            )
+        # an empty shard (uneven split) and a replica are no record
+        spans = [span] if writer and local.numel() else []
+        manifest_leaves.append({"k": "sharded", "n": len(spans), "spans": spans})
+        if spans:
+            records.append(("device" if _on_cuda(local) else "host", local))
+
+    manifest = json.dumps({
+        "version": _MANIFEST_VERSION,
+        "tree": skeleton,
+        "leaf_records": manifest_leaves,
+        "process": pid,
+    }).encode()
+    with StreamWriter(f"{path_prefix}.p{pid}.tpbs", opts, checksum=checksum) as w:
+        w.write(manifest, Options(type_size=1))
+        _write_leaf_records(w, records, opts)
+
+
+class _ShardedSet:
+    """The open files of a sharded checkpoint and their manifests."""
+
+    def __init__(self, path_prefix, num_processes: int):
+        self.readers: list[StreamReader] = []
+        try:
+            for p in range(num_processes):
+                self.readers.append(StreamReader(f"{path_prefix}.p{p}.tpbs"))
+            self.metas = [_read_manifest(r) for r in self.readers]
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        for r in self.readers:
+            r.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def first_record(self, p: int, i: int) -> int:
+        """The index, in process p's file, of leaf i's first record
+        (record 0 is the manifest)."""
+        return 1 + sum(x["n"] for x in self.metas[p]["leaf_records"][:i])
+
+    def leaf(self, node: dict, bases: list[int]) -> torch.Tensor:
+        """The "array" or "sharded_array" leaf ``node`` as a CPU tensor;
+        ``bases[p]`` is its first record in process p's file."""
+        i = node["i"]
+        dtype, shape = _manifest_dtype(node["dtype"]), tuple(node["shape"])
+        if node["t"] == "array":  # replicated: stored by whichever process has n = 1
+            for p, m in enumerate(self.metas):
+                if m["leaf_records"][i]["n"]:
+                    return _read_leaf(self.readers[p], bases[p], dtype, shape)
+            raise InvalidDataError("blosc: invalid compressed data: replicated leaf missing")
+        out = torch.empty(shape, dtype=dtype)
+        filled = torch.zeros(shape, dtype=torch.bool)
+        for p, m in enumerate(self.metas):
+            for k, span in enumerate(m["leaf_records"][i].get("spans", [])):
+                idx = tuple(slice(a, b) for a, b in span)
+                out[idx] = _read_leaf(self.readers[p], bases[p] + k, dtype,
+                                      tuple(b - a for a, b in span))
+                filled[idx] = True
+        if not bool(filled.all()):
+            raise InvalidDataError("blosc: invalid compressed data: sharded leaf has holes")
+        return out
+
+
+def load_leaf_sharded(path_prefix, num_processes: int, key_path: str):
+    """Load ONE leaf of a sharded checkpoint, reading only its records.
+
+    Per-process record indices follow from the manifests alone (record 0
+    is the manifest; leaf i's records start at 1 + the sum of n of the
+    leaves before i in each process's file), so one tensor comes out of a
+    large sharded checkpoint by reading each file's manifest and that
+    leaf's shard records.
+    """
+    with _ShardedSet(path_prefix, num_processes) as files:
+        node = _walk_manifest(files.metas[0]["tree"], key_path)
+        t = node.get("t")
+        if t in ("raw", "array0"):
+            return _decode(node, None)
+        if t not in ("array", "sharded_array"):
+            raise KeyError(
+                f"checkpoint path {key_path!r} is a {t!r} subtree; "
+                "load_leaf_sharded loads single leaves"
+            )
+        return files.leaf(node, [files.first_record(p, node["i"])
+                                 for p in range(num_processes)])
+
+
+def load_pytree_sharded(path_prefix, num_processes: int):
+    """Reassemble a sharded checkpoint from all process files, as CPU
+    tensors."""
+    with _ShardedSet(path_prefix, num_processes) as files:
+        cursors = [1] * num_processes  # per-process record cursors
+
+        def fetch(node):
+            t = node["t"]
+            if t in ("array", "sharded_array"):
+                out = files.leaf(node, cursors)
+                for p, m in enumerate(files.metas):
+                    cursors[p] += m["leaf_records"][node["i"]]["n"]
+                return out
+            if t == "dict":
+                return {k: fetch(v) for k, v in node["items"]}
+            if t == "list":
+                return [fetch(v) for v in node["items"]]
+            if t == "tuple":
+                return tuple(fetch(v) for v in node["items"])
+            return _decode(node, None)  # array0, raw, or InvalidDataError
+
+        return fetch(files.metas[0]["tree"])

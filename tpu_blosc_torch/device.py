@@ -152,15 +152,23 @@ def _device_filter_fetch(flat: torch.Tensor, opts: Options, nb_full: int,
 def _compress_array_stage2(staged) -> bytes:
     """The host half of compress_array: run the native codec over the
     filtered stream and write the frame (≙ tpu_blosc/device.py:795-876);
-    a finished frame from stage 1 passes through.
+    a finished frame from stage 1 passes through."""
+    if isinstance(staged, bytes):
+        return staged
+    filtered, opts, block_size = staged
+    return assemble_split_frame(
+        opts, filtered.size, block_size, *compress_filtered_slots(filtered, opts, block_size)
+    )
+
+
+def compress_filtered_slots(filtered: np.ndarray, opts: Options, block_size: int):
+    """``native.backend.compress_slots`` of an already filtered stream
+    (whole blocks of ``block_size``, the last one may be short).
 
     Blocks that take the memcpy fallback must carry their raw bytes, so
     their filtered bytes are unfiltered back on the host, with the
     inverse of the filter that made them.
     """
-    if isinstance(staged, bytes):
-        return staged
-    filtered, opts, block_size = staged
     native = native_pipeline_codec(opts.codec, opts.level)
     if native is None:
         raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
@@ -172,9 +180,7 @@ def _compress_array_stage2(staged) -> bytes:
     for i in np.flatnonzero(memcpy_flags):
         payload = slots[i * slot : i * slot + sizes[i]]
         payload[:] = filters.unfilter_bytes(payload, opts.type_size, opts.shuffle)
-    return assemble_split_frame(
-        opts, filtered.size, block_size, slots, slot, sizes, memcpy_flags
-    )
+    return slots, slot, sizes, memcpy_flags
 
 
 def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
