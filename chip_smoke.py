@@ -71,6 +71,17 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
    (BASELINE.json config 4), LZ4 level 5, bit shuffle, with one 1 MiB
    block of random bytes and a 36,874-byte tail ending in a partial group
    of 5 elements;
+   then, on A: compress_with_stats of its bytes and frame_stats of its
+   frame (64 blocks); a stats.trace of its compress_array and
+   decompress_array(strategy="device"); the codec registry (a codec at
+   the new ID 42, zlib level 1, and one in place of LZ4 that wraps the
+   builtin, each counting its calls): compress_array launches the shuffle
+   kernel once, calls the codec once a block and writes the frame
+   compress_with_options writes under the same registry;
+   decompress_array(strategy="device") calls the codec on each coded
+   block, launches the unshuffle kernel once and gives the tensor back;
+   strategy "match" under the override gives the transfer frame; then the
+   registry is restored and A's frame is the builtin one again;
 7. main path C: 256 MiB of tiled float32 with 1% noise (bench.py's match
    data), LZ4 level 5, 1 MiB blocks, compress_array(strategy="match");
 8. main path G: 256 MiB of int32, a staircase (arange // 64) whose every
@@ -85,16 +96,23 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
     (354.8 M bfloat16 values, N(0, 0.02) from the seed, made on the card)
     through save_pytree (LZ4 level 5, byte shuffle), load_pytree onto the
     card (the transfer and the device strategy) and load_leaf, in a
-    temporary directory; then, for H, load_pytree(device=True,
-    strategy="records") of a checkpoint of one of F's leaves and 64 MiB
-    of C's tensor;
-11. suggest_codec and suggest_options on A's, B's and random bytes;
+    temporary directory, and a stats.trace of one more save_pytree; then,
+    for H, load_pytree(device=True, strategy="records") of a checkpoint
+    of one of F's leaves and 64 MiB of C's tensor;
+11. suggest_codec and suggest_options on A's, B's and random bytes; the
+    CLI (tpu_blosc_torch.__main__.main) in this process: suggest, then
+    compress (the file must be compress_batch_with_options' frame),
+    decompress, info, pack, unpack and verify --deep on A's bytes and on
+    a .npy of a leaf of F (as float32);
 12. main path I: in this process, a group of one rank over NCCL on cuda:0
     (dist.initialize_distributed, a FileStore in a temporary directory):
     compress_chunked_mesh with statistics and decompress_chunked_mesh of
     A's ramp plus a 123-byte tail (byte shuffle) and of D's linspace (bit
     shuffle), and compress_chunked_multihost / decompress_chunked_multihost
     of the same bytes; the calls and, one by one, the stages are timed;
+    then stats.trace of compress_chunked_mesh with statistics, and of 20
+    launches each of the shuffle and the run-count kernel back to back on
+    its (64, 1 MiB) rows;
 13. main path J: the script starts itself twice (--rank r --world 2), two
     ranks over Gloo that share the card: (a) compress_chunked_mesh and
     decompress_chunked_mesh of I's first stream; (b) save_pytree_sharded
@@ -102,10 +120,20 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
     weight a DTensor Shard(0) over the ranks with CUDA local shards, the
     rest plain tensors), and the same from CPU local shards; then this
     process loads the set with load_pytree_sharded and load_leaf_sharded;
-14. prints the kernels' JSON line (each kernel's launches on the main
-    paths, its time, its plain version's, the time of the one PyTorch call
-    that computes the same function where there is one, and the least
-    time the card could take: see ``bound``) and, last, the ok line.
+    beside the ranks, one ``python -m tpu_blosc_torch info`` of A's frame
+    in a subprocess;
+14. prints the device busy share of the traces of A, F and I (the union of
+    their kernel, copy and memset intervals over the traced window), the
+    kernels' JSON line (each kernel's launches on the main paths, its
+    time, its plain version's, the time of the one PyTorch call that
+    computes the same function where there is one, and the least time the
+    card could take: see ``bound``; for the shuffle pair and the run-count
+    kernel their mean device time in the traces) and, last, the ok line.
+    A trace is complete when every call that put work on the card has its
+    device event (matched by correlation ID) and every launch of a port
+    kernel its event (read_trace names them by TRACE_KERNELS); only a
+    complete trace gives a busy share, and each trace must hold the
+    events of the kernels its phase names.
 
 Paths A, B, D and E run compress_array on the CUDA tensor and
 decompress_array(strategy="device"), and must give the frame of the host
@@ -141,6 +169,7 @@ non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -1787,6 +1816,394 @@ def check_records_load(tbt, state, x, opts, workdir) -> dict:
     return launches
 
 
+class Zlib1:
+    """A codec for a new ID: zlib at level 1, in Python."""
+
+    def name(self):
+        return "zlib1"
+
+    def compress(self, data, level):
+        import zlib
+
+        return zlib.compress(bytes(data), 1)
+
+    def decompress(self, data, expected_size):
+        import zlib
+
+        return zlib.decompress(bytes(data))
+
+
+class Counting:
+    """A registered codec that counts its calls and forwards them."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.compressed = self.decompressed = 0
+
+    def name(self):
+        return "counting-" + self.inner.name()
+
+    def compress(self, data, level):
+        self.compressed += 1
+        return self.inner.compress(data, level)
+
+    def decompress(self, data, expected_size):
+        self.decompressed += 1
+        return self.inner.decompress(data, expected_size)
+
+
+@contextlib.contextmanager
+def restored_registry():
+    """Put the port's codec registry back as it was on the way out."""
+    from tpu_blosc_torch.codecs import registry
+
+    saved = dict(registry._codecs)
+    try:
+        yield
+    finally:
+        with registry._lock:
+            registry._codecs.clear()
+            registry._codecs.update(saved)
+            registry._version += 1
+
+
+def phase_registry(tbt, x, opts, frame_a) -> dict:
+    """The registry on the card: A's tensor with a codec under a new ID
+    (42, zlib level 1) and with LZ4 taken over by a wrapper of the
+    builtin, both counting their calls.  compress_array launches the
+    shuffle kernel once on its vec16 path and calls the codec once a
+    block, to the frame compress_with_options writes under the same
+    registry; decompress_array(strategy="device") calls the codec once a
+    block and launches the unshuffle kernel once on its vec16 path, and
+    gives the tensor back; under the override strategy "match" gives the
+    transfer frame.  The registry is restored, and A's frame is the
+    builtin one again.  Returns each codec's launches and times."""
+    from dataclasses import replace
+
+    from tpu_blosc_torch.chunk import choose_block_size
+    from tpu_blosc_torch.codecs import standard
+    from tpu_blosc_torch.filters import kernels
+
+    host = x.cpu().numpy()
+    nb = -(-host.nbytes // choose_block_size(host.nbytes, opts.type_size, opts.block_size))
+    out = {}
+    with restored_registry():
+        for cid, codec in ((42, Counting(Zlib1())), (tbt.LZ4, Counting(standard.Lz4Codec()))):
+            tbt.register_codec(cid, codec)
+            o = replace(opts, codec=cid)
+            name = f"registry, {codec.name()} at ID {int(cid)}"
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            frame = tbt.compress_array(x, o)
+            t_c = time.perf_counter() - t0
+            launches_c = dict(kernels.launches)
+            check(launches_c["shuffle_blocks"] == launches_c["shuffle_blocks.vec16"] == 1,
+                  f"{name}: compress_array launched the shuffle kernel once, vec16 ({launches_c})")
+            check(codec.compressed == nb,
+                  f"{name}: the codec compressed once a block ({codec.compressed} of {nb})")
+            check(frame == tbt.compress_with_options(host, o),
+                  f"{name}: the frame == compress_with_options' under the same registry")
+            coded = nb - tbt.frame_stats(frame).memcpy_blocks
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            y = tbt.decompress_array(frame, x.dtype, device=DEVICE, strategy="device")
+            torch.cuda.synchronize()
+            t_d = time.perf_counter() - t0
+            launches_d = dict(kernels.launches)
+            check(launches_d["unshuffle_blocks"] == launches_d["unshuffle_blocks.vec16"] == 1,
+                  f"{name}: decompress_array(device) unshuffled on the card once, vec16 "
+                  f"({launches_d})")
+            check(codec.decompressed == coded,
+                  f"{name}: the codec decoded each coded block ({codec.decompressed} of {coded})")
+            check(torch.equal(y, x), f"{name}: decompress_array(device) gives the tensor back")
+            if cid == tbt.LZ4:
+                check(tbt.compress_array(x, o, strategy="match") == frame,
+                      f"{name}: strategy match under the override gives the transfer frame")
+            out[name] = {"launches_compress": nonzero(launches_c),
+                         "launches_decompress": nonzero(launches_d), "compress_s": t_c,
+                         "decompress_s": t_d, "ratio": host.nbytes / len(frame)}
+            print(f"{name}: {host.nbytes} bytes in {nb} blocks, ratio "
+                  f"{host.nbytes / len(frame):.2f}; compress_array {t_c:.3f} s (launches "
+                  f"{nonzero(launches_c)}), decompress_array(device) {t_d:.3f} s (launches "
+                  f"{nonzero(launches_d)})")
+    check(standard.is_builtin(tbt.LZ4) and tbt.get_codec(42) is None,
+          "the registry is restored")
+    check(tbt.compress_array(x, opts) == frame_a, "A: the builtin frame again after the registry")
+    return out
+
+
+# (pattern of a kernel's name in a profiler trace, the port's kernel)
+TRACE_KERNELS = [
+    (r"vec16_blocks<\d+, true>", "tpbt_shuffle_blocks"),
+    (r"vec16_blocks<\d+, false>", "tpbt_unshuffle_blocks"),
+    (r"transpose_blocks<", "tpbt_shuffle_blocks or tpbt_unshuffle_blocks, generic"),
+    (r"groups<(\d+, )?true>", "tpbt_bitshuffle_blocks"),
+    (r"groups<(\d+, )?false>", "tpbt_bitunshuffle_blocks"),
+    (r"seg_run_counts<", "tpbt_seg_run_counts"),
+    (r"rows_rle<", "tpbt_rows_rle"),
+    (r"match_count|match_argmax", "tpbt_match_count"),
+    (r"match_nibble", "tpbt_match_nibble"),
+    (r"probe_tiles", "tpbt_probe_tiles"),
+    (r"match_fill", "tpbt_match_fill"),
+]
+
+
+def read_trace(path: str) -> dict:
+    """The device side of a Chrome trace that stats.trace wrote: per kernel
+    of the port (torch's own kernels under "torch: <name>") its count and
+    device milliseconds, the copies', the busy share (the union of the
+    kernel, copy and memset intervals over the traced window, first to
+    last event of the trace), and the calls that put work on the card
+    (runtime or driver launches, copies, memsets) whose device event is
+    not in the trace, matched by correlation ID ("lost"), with the least
+    gap from a kept call to its device event.  The file is removed."""
+    import re
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    timed = [e for e in events if "ts" in e]
+    start = min(float(e["ts"]) for e in timed)
+    end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in timed)
+    kernels: dict = {}
+    spans = []
+    on_card: dict = {}
+    calls = []
+    for e in timed:
+        cat = e.get("cat")
+        corr = (e.get("args") or {}).get("correlation")
+        if (cat in ("cuda_runtime", "cuda_driver") and e.get("ph") == "X"
+                and re.search(r"Launch|Memcpy|Memset", e.get("name", ""))):
+            calls.append((corr, float(e["ts"]), e["name"]))
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t0, dur = float(e["ts"]), float(e.get("dur", 0))
+        on_card[corr] = t0
+        spans.append((t0, t0 + dur))
+        name = e.get("name", "")
+        if cat == "kernel":
+            label = next((k for pat, k in TRACE_KERNELS if re.search(pat, name)), None)
+            label = label or "torch: " + re.sub(r"^void |\(.*$|<.*$", "", name).split("::")[-1]
+        else:
+            label = name
+        row = kernels.setdefault(label, {"count": 0, "ms": 0.0})
+        row["count"] += 1
+        row["ms"] += dur / 1e3
+    busy, last = 0.0, start
+    for a, b in sorted(spans):
+        a = max(a, last)
+        if b > a:
+            busy += b - a
+            last = b
+    for row in kernels.values():
+        row["mean_ms"] = row["ms"] / row["count"]
+    window = (end - start) / 1e3
+    lost = [f"{name} at {(ts - start) / 1e3:.3f} ms" for corr, ts, name in calls
+            if corr not in on_card]
+    gaps = [on_card[corr] - ts for corr, ts, _ in calls if corr in on_card]
+    return {"window_ms": window, "busy_ms": busy / 1e3, "busy_share": busy / 1e3 / window,
+            "kernels": kernels, "calls": len(calls), "lost": lost,
+            "least_gap_ms": min(gaps) / 1e3 if gaps else None}
+
+
+# the kernels' launch counters (filters.kernels.launches) by their names
+# in TRACE_KERNELS
+LAUNCH_NAMES = {"shuffle_blocks": "tpbt_shuffle_blocks",
+                "unshuffle_blocks": "tpbt_unshuffle_blocks",
+                "bit_shuffle_blocks": "tpbt_bitshuffle_blocks",
+                "bit_unshuffle_blocks": "tpbt_bitunshuffle_blocks",
+                "seg_run_counts": "tpbt_seg_run_counts", "rows_rle": "tpbt_rows_rle",
+                "match_count": "tpbt_match_count", "match_nibble": "tpbt_match_nibble",
+                "probe_tiles": "tpbt_probe_tiles", "match_fill": "tpbt_match_fill"}
+
+
+def traced(tbt, name: str, fn, need: tuple, tries: int = 3) -> dict:
+    """Run ``fn`` under stats.trace, read the trace and print the reading,
+    with each port kernel's events beside its launches in the region.  A
+    trace is complete when every call that put work on the card has its
+    device event and every launch of a port kernel its event; only a
+    complete trace gives a busy share ("busy_share" None otherwise).  The
+    card's profiler has been seen to drop a region's first operations, so
+    an incomplete trace is taken again, up to ``tries`` times in all, and
+    each attempt is printed.  The last attempt must hold an event of each
+    kernel in ``need``."""
+    from tpu_blosc_torch.filters import kernels
+
+    history = []
+    for attempt in range(1, tries + 1):
+        before = dict(kernels.launches)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+            with tbt.stats.trace(d) as t:
+                fn()
+            check("trace_file" in t, f"{name}: stats.trace wrote a trace")
+            got = read_trace(t["trace_file"])
+        launched = {LAUNCH_NAMES[k]: v - before[k] for k, v in kernels.launches.items()
+                    if k in LAUNCH_NAMES and v > before[k]}
+        kept = {k: got["kernels"].get(k, {}).get("count", 0) for k in launched}
+        complete = not got["lost"] and kept == launched
+        history.append({"lost": len(got["lost"]), "calls": got["calls"],
+                        "kept": {k: f"{kept[k]} of {v}" for k, v in launched.items()}})
+        print(f"trace {name}, attempt {attempt}: {got['calls']} calls that put work on the "
+              f"card, {len(got['lost'])} without their device event {got['lost'][:6]}; port "
+              f"kernels' events of their launches {history[-1]['kept']}; least gap from a "
+              f"call to its device event {got['least_gap_ms']} ms")
+        if complete:
+            break
+    missing = [k for k in need if got["kernels"].get(k, {}).get("count", 0) == 0]
+    check(not missing, f"{name}: the trace holds events of {need} ({missing} missing)")
+    share = (f"device busy {got['busy_ms']:.3f} ms = {100 * got['busy_share']:.2f}%, idle "
+             f"{100 * (1 - got['busy_share']):.2f}%" if complete else
+             "device busy share: incomplete (events lost), not given")
+    rows = sorted(got["kernels"].items(), key=lambda kv: -kv[1]["ms"])
+    print(f"trace {name} (stats.trace, attempt {attempt} of {tries}, card {gpu_line()}): "
+          f"window {got['window_ms']:.3f} ms (wall {t['elapsed_s'] * 1e3:.3f} ms), {share}; "
+          + "; ".join(f"{k} {v['count']}x, {v['ms']:.4f} ms, mean {v['mean_ms']:.4f}"
+                      for k, v in rows[:12]))
+    return {**got, "busy_share": got["busy_share"] if complete else None,
+            "elapsed_s": t["elapsed_s"], "attempts": history}
+
+
+def phase_stats_a(tbt, x, opts, frame) -> dict:
+    """compress_with_stats of A's bytes, frame_stats of A's frame, and a
+    trace of A's compress_array and decompress_array(device)."""
+    host = x.cpu().numpy()
+    frame_h, st = tbt.compress_with_stats(host, opts)
+    fs = tbt.frame_stats(frame)
+    check(frame_h == frame and st.nbytes_orig == host.nbytes and st.nbytes_comp == len(frame),
+          "stats: compress_with_stats of A's bytes gives A's frame and its sizes")
+    check(fs.num_blocks == st.num_blocks == 64 and fs.memcpy_blocks == st.memcpy_blocks == 0
+          and sum(fs.block_payload_sizes) == len(frame) - 16 - 4 - 4 * 64,
+          f"stats: frame_stats of A's frame, 64 blocks ({fs.num_blocks})")
+    print(f"stats: compress_with_stats of A's {st.nbytes_orig} bytes: ratio {st.ratio:.2f}, "
+          f"{st.num_blocks} blocks of {st.block_size}, {st.memcpy_blocks} raw, "
+          f"{st.throughput_gbps:.3f} GB/s host compress; frame_stats: payloads "
+          f"{min(fs.block_payload_sizes)}-{max(fs.block_payload_sizes)} bytes")
+
+    def a():
+        f = tbt.compress_array(x, opts)
+        y = tbt.decompress_array(f, x.dtype, device=DEVICE, strategy="device")
+        check(f == frame and torch.equal(y, x), "A traced: the frame and the tensor")
+
+    return traced(tbt, "A compress_array + decompress_array(device)", a,
+                  ("tpbt_shuffle_blocks", "tpbt_unshuffle_blocks"))
+
+
+def phase_cli(tbt, x_a, leaf, workdir: str) -> None:
+    """The CLI in this process on A's bytes and on a .npy of a leaf of F
+    (as float32): suggest (tpu_blosc's advice: NumPy's statistic, no
+    kernel), compress (the file is compress_batch_with_options'),
+    decompress, info, pack, unpack and verify round-trip."""
+    import io
+
+    from tpu_blosc_torch.__main__ import main as cli
+
+    t_start = time.perf_counter()
+    data = x_a.cpu().numpy().tobytes()
+    raw = os.path.join(workdir, "a.bin")
+    with open(raw, "wb") as f:
+        f.write(data)
+    arr = leaf.float().cpu().numpy()
+    npy = os.path.join(workdir, "leaf.npy")
+    np.save(npy, arr)
+    log = io.StringIO()
+
+    def run(*argv):
+        with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+            rc = cli(list(argv))
+        check(rc == 0, f"CLI {' '.join(argv[:1])}: exit 0 ({log.getvalue()[-500:]})")
+
+    run("suggest", raw)
+    run("compress", raw, "-o", raw + ".bl2")
+    with open(raw + ".bl2", "rb") as f:
+        frame = f.read()
+    opts = tbt.Options(codec=tbt.LZ4, level=5, shuffle=tbt.SHUFFLE, type_size=4)
+    check(frame == tbt.compress_batch_with_options([data], opts)[0],
+          "CLI compress: the file is compress_batch_with_options' frame")
+    run("decompress", raw + ".bl2", "-o", raw + ".out")
+    with open(raw + ".out", "rb") as f:
+        check(f.read() == data, "CLI decompress gives A's bytes back")
+    run("info", raw + ".bl2")
+    run("pack", npy, "-o", npy + ".tpba")
+    run("info", npy + ".tpba")
+    run("unpack", npy + ".tpba", "-o", npy + ".out.npy")
+    back = np.load(npy + ".out.npy")
+    check(back.dtype == arr.dtype and np.array_equal(back, arr), "CLI pack/unpack of F's leaf")
+    stream = os.path.join(workdir, "a.tpbs")
+    with tbt.StreamWriter(stream, opts, checksum=True) as w:
+        w.write(data)
+        w.write(frame)
+    run("verify", stream, "--deep")
+    check("2 records ok (crc32-checked, decoded)" in log.getvalue(), "CLI verify --deep")
+    advice = [line for line in log.getvalue().splitlines() if "--codec" in line]
+    print(f"CLI: suggest, compress, decompress, info, pack, info, unpack, verify --deep in "
+          f"process {time.perf_counter() - t_start:.3f} s (suggest: "
+          f"{advice[0].split(': ', 1)[1]})")
+
+
+def start_module_info(frame: bytes, workdir: str):
+    """Start ``python -m tpu_blosc_torch info`` on ``frame`` in a
+    subprocess; most of its time is importing torch, so it runs beside
+    path J's ranks, which import it too."""
+    path = os.path.join(workdir, "a.bl2")
+    with open(path, "wb") as f:
+        f.write(frame)
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "tpu_blosc_torch", "info", path], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def check_module_info(started) -> None:
+    """The module invocation of start_module_info read A's frame."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+        proc.wait()
+    check(proc.returncode == 0 and "uncompressed: 67,108,864 bytes" in out,
+          f"python -m tpu_blosc_torch info: {out[-300:]} {err[-300:]}")
+    print(f"CLI: python -m tpu_blosc_torch info of A's frame in a subprocess beside path J: "
+          f"exit 0 after {time.perf_counter() - t0:.3f} s")
+
+
+def phase_trace_i(tbt, inputs) -> dict:
+    """Traces on path I's group: compress_chunked_mesh with statistics of
+    I's first stream (it must hold the run-count kernel; the card's
+    profiler has lost the copy of the rows to the card and the shuffle
+    launch after it there), then 20 launches each of the shuffle and the
+    run-count kernel back to back on its (64, 1 MiB) rows already on the
+    card, which the trace times without the gaps between launches."""
+    from tpu_blosc_torch.chunk import choose_block_size
+    from tpu_blosc_torch.dist import mesh as dmesh
+    from tpu_blosc_torch.filters import rle
+
+    _, data, opts = inputs[0]
+    got = {"mesh": traced(tbt, "I compress_chunked_mesh(return_stats=True)",
+                          lambda: dmesh.compress_chunked_mesh(data, opts, return_stats=True),
+                          ("tpbt_seg_run_counts",))}
+    raw = np.frombuffer(data, np.uint8)
+    bs = choose_block_size(raw.size, opts.type_size, opts.block_size)
+    nb = raw.size // bs
+    x = dmesh.rows_to_device(raw[: nb * bs].reshape(nb, bs), torch.device(DEVICE))
+    y = tbt.filters.filter_blocks(x, opts.type_size, opts.shuffle)
+    rle.seg_run_counts(y)
+
+    def kernels20():
+        for _ in range(20):
+            tbt.filters.filter_blocks(x, opts.type_size, opts.shuffle)
+            rle.seg_run_counts(y)
+
+    got["x20"] = traced(tbt, f"I shuffle and seg_run_counts x20 at ({nb}, {bs})", kernels20,
+                        ("tpbt_shuffle_blocks", "tpbt_seg_run_counts"))
+    for kernel, nbytes in (("tpbt_shuffle_blocks", 2 * y.numel()),
+                           ("tpbt_seg_run_counts", y.numel())):
+        row = got["x20"]["kernels"][kernel]
+        b = bound(nbytes, 0)["bound_ms"]
+        print(f"I {kernel} by trace: {row['count']} launches, mean {row['mean_ms']:.4f} ms = "
+              f"{100 * b / row['mean_ms']:.0f}% of its {b:.4f} ms bound (bytes)")
+    return got
+
+
 GROUP_TIMEOUT_S = 120
 J_WORLD = 2
 J_LAYERS = 4
@@ -2225,6 +2642,10 @@ def main() -> int:
         n_raw = check_and_time_case(tbt, name, x, opts, frame, y)
         if name[0] in "BE":
             check(n_raw >= 1, f"{name[0]}: the random block took the memcpy fallback")
+    _, x_a, opts_a = cases[0]
+    frame_a = results[0][0]
+    trace_a = phase_stats_a(tbt, x_a, opts_a, frame_a)
+    registry_a = phase_registry(tbt, x_a, opts_a, frame_a)
     _, x_e, opts_e = cases[3]
     part = x_e[: 8 * MIB]
     check(tbt.compress_array(part, opts_e, strategy="match")
@@ -2287,12 +2708,21 @@ def main() -> int:
             check(launches_f[kernel] >= 1, f"F: {kernel} launched ({launches_f})")
         check_path_f(tbt, state, opts_f, *f_run, workdir)
         del f_run
+        traced_path = os.path.join(workdir, "traced.tpbs")
+        trace_f = traced(tbt, "F save_pytree", lambda: tbt.save_pytree(traced_path, state, opts_f),
+                         ("tpbt_shuffle_blocks",))
+        os.remove(traced_path)
         launches_h_load = check_records_load(tbt, state, x_c, opts_f, workdir)
     finally:
         shutil.rmtree(workdir)
 
     launches_adv = phase_advisors(tbt, rng, cases[:2])
     print(f"advisors, launches: {launches_adv}")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        phase_cli(tbt, x_a, state["params"]["h"][0]["mlp"]["c_fc"]["w"], workdir)
+    finally:
+        shutil.rmtree(workdir)
     del state
     torch.cuda.empty_cache()
 
@@ -2309,10 +2739,18 @@ def main() -> int:
             print(f"main path I, launches: {nonzero(launches_i)}")
             dist_i = check_and_time_path_i(tbt, inputs_i, results_i, launches_i)
             del results_i
+            trace_i = phase_trace_i(tbt, inputs_i)
         finally:
             dist.destroy_process_group()
         sys.stdout.flush()
-        records_j = run_path_j(workdir)
+        module_info = start_module_info(frame_a, workdir)
+        try:
+            records_j = run_path_j(workdir)
+        except BaseException:
+            module_info[1].kill()
+            module_info[1].wait()
+            raise
+        check_module_info(module_info)
         launches_j = [rec[key] for rec in records_j for key in ("launches_a", "launches_b")]
         print(f"main path J, launches by rank, (a) the frame and (b) the sharded save: "
               f"{[nonzero(c) for c in launches_j]}")
@@ -2320,6 +2758,13 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
 
+    print("device busy share by trace (kernels, copies and memsets over the window, from "
+          f"complete traces only; card {gpu_line()}): " + ", ".join(
+              f"{k} {100 * tr['busy_share']:.2f}% of {tr['window_ms']:.3f} ms"
+              if tr["busy_share"] is not None else
+              f"{k} incomplete in {len(tr['attempts'])} attempts"
+              for k, tr in (("A", trace_a), ("F", trace_f), ("I", trace_i["mesh"]))))
+    print(f"registry: {json.dumps(registry_a)}")
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
     # the kernels' launches in the main paths A, B, D, E, C, G, H (the two
@@ -2340,6 +2785,11 @@ def main() -> int:
             "ms": t4[key], "plain_ms": t4[f"{key}_plain"],
             # each byte read once and written once; nothing is computed
             **bound(2 * 64 * MIB, 0), "library_ms": t4[f"{key}_library"],
+            # mean device ms of its launches in the traces of A, F and I
+            "trace_ms": {k: tr["kernels"][f"tpbt_{kernel}"]["mean_ms"]
+                         for k, tr in (("A", trace_a), ("F", trace_f),
+                                       ("I, 20 back to back", trace_i["x20"]))
+                         if f"tpbt_{kernel}" in tr["kernels"]},
             "times": {g: {"path": row["path"], "ms": row[key],
                           "plain_ms": row[f"{key}_plain"],
                           "library_ms": row[f"{key}_library"]}
@@ -2390,6 +2840,8 @@ def main() -> int:
          "replaces": "tpu_blosc/device.py:165",
          "launches": sum(c["seg_run_counts"] for c in main_runs),
          **rle_g["counts"],
+         "trace_ms": {"I, 20 back to back": trace_i["x20"]["kernels"][
+             "tpbt_seg_run_counts"]["mean_ms"]},
          "max_abs_err": max(rle_k["counts_max_abs_err"], rle_g["counts"]["max_abs_err"])},
         {"name": "tpbt_rows_rle", "route": "cuda", "source": src + "rle.cu",
          "replaces": "tpu_blosc/device.py:184", "launches": launches_g["rows_rle"],

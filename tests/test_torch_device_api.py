@@ -370,7 +370,8 @@ def test_bitshuffle_small_input_takes_host_route():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, tpu_blosc_torch\n"
+        "import sys, tpu_blosc_torch, tpu_blosc_torch.stats, tpu_blosc_torch.codecs.standard\n"
+        "import tpu_blosc_torch.__main__\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu_blosc.'))"
         " or m == 'tpu_blosc')\n"
         "assert not bad, bad\n"

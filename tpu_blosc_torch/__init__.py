@@ -29,10 +29,15 @@ together over ``torch.distributed`` (``tpu_blosc_torch.dist``,
 ``checkpoint.save_pytree_sharded``; reached as submodules, as in
 tpu_blosc).
 
-The bytes API is tpu_blosc's, name for name:
+The bytes API is tpu_blosc's, name for name, with its open codec
+registry (a registered codec runs at every entry point, the device ones
+included), ``stats`` (``compress_with_stats``, ``frame_stats``, and
+``stats.trace`` for a ``torch.profiler`` trace of a region) and the CLI
+``python -m tpu_blosc_torch``:
 
     frame = tbt.compress(data, tbt.LZ4, 5, tbt.SHUFFLE, 4)
     assert tbt.decompress(frame) == data
+    tbt.register_codec(42, my_codec)  # compress/decompress/name
 """
 
 from .api import (
@@ -55,6 +60,7 @@ from .api import (
 )
 from .array import pack_array, unpack_array, unpack_array_rows
 from .checkpoint import load_leaf, load_pytree, save_pytree
+from .codecs.registry import get_codec, list_codecs, register_codec
 from .device import compress_array, decompress_array
 from .errors import (
     BloscError,
@@ -91,6 +97,7 @@ from .format import (
     parse_header,
 )
 from .options import Options, default_options
+from .stats import CompressionStats, FrameStats, compress_with_stats, frame_stats
 from .stream import StreamReader, StreamWriter, load, load_array, save, save_array
 
 # the codecs' and filters' names as the quick-start spells them
@@ -114,6 +121,7 @@ __all__ = [
     "BloscError",
     "Codec",
     "CompressionFailedError",
+    "CompressionStats",
     "DataTooLargeError",
     "DecompressionFailedError",
     "FLAG_BITSHUFFLE",
@@ -121,6 +129,7 @@ __all__ = [
     "FLAG_SHUFFLE",
     "FLAG_SPLIT",
     "FORMAT_VERSION",
+    "FrameStats",
     "HEADER_SIZE",
     "Header",
     "InvalidCodecError",
@@ -149,6 +158,7 @@ __all__ = [
     "compress_batch",
     "compress_batch_with_options",
     "compress_with_options",
+    "compress_with_stats",
     "decompress",
     "decompress_array",
     "decompress_batch",
@@ -158,14 +168,18 @@ __all__ = [
     "decompress_range_into",
     "decompress_with_size",
     "default_options",
+    "frame_stats",
+    "get_codec",
     "get_decompressed_size",
     "get_info",
+    "list_codecs",
     "load",
     "load_array",
     "load_leaf",
     "load_pytree",
     "pack_array",
     "parse_header",
+    "register_codec",
     "save",
     "save_array",
     "save_pytree",

@@ -13,7 +13,9 @@ batch calls ``compress_batch_with_options``,
 (:769-878), ``get_info`` and ``get_decompressed_size`` (:881-902).
 
 The frames are byte-identical to the JAX package's: both run the same
-native codec.  When the memcpy fallback stores raw bytes in a single-block
+native codec, and a codec registered with ``register_codec`` (a new ID, or
+one in place of a builtin) is called block by block as there
+(chunk.py).  When the memcpy fallback stores raw bytes in a single-block
 frame, the shuffle flags are cleared (the JAX package's documented
 divergence from the reference, tpu_blosc/api.py:8-13).  Inputs past the
 uint32 frame go into a TPB2 container (container.py), as there.
@@ -29,13 +31,23 @@ from . import container as _container
 from . import filters
 from .errors import (
     DataTooLargeError,
-    InvalidCodecError,
     InvalidDataError,
     InvalidHeaderError,
     SizeMismatchError,
 )
 from .filters import probe as _probe
-from .format import HEADER_SIZE, MAX_UINT32, Codec, Shuffle, parse_header
+from .format import (
+    FLAG_BITSHUFFLE,
+    FLAG_MEMCPY,
+    FLAG_SHUFFLE,
+    FORMAT_VERSION,
+    HEADER_SIZE,
+    MAX_UINT32,
+    Codec,
+    Header,
+    Shuffle,
+    parse_header,
+)
 from .native import backend as _nb
 from .options import Options
 
@@ -102,13 +114,33 @@ def _compress_frame_sized(raw, opts: Options) -> bytes:
     if opts.block_size > 0 or len(raw) > AUTO_BLOCK_THRESHOLD:
         return _chunk.compress_chunked(raw, opts)
     native = _chunk.native_pipeline_codec(opts.codec, opts.level)
-    if native is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
-    # filter, codec, memcpy fallback and header in one C call
-    return _nb.compress_frame(
-        raw, opts.type_size, int(opts.shuffle), int(opts.codec),
-        native[0], native[1],
+    if native is not None:
+        # filter, codec, memcpy fallback and header in one C call
+        return _nb.compress_frame(
+            raw, opts.type_size, int(opts.shuffle), int(opts.codec),
+            native[0], native[1],
+        )
+    return _compress_single_block_registry(raw, opts)
+
+
+def _compress_single_block_registry(raw, opts: Options) -> bytes:
+    """A single-block frame from the registered codec of ``opts.codec``
+    (≙ tpu_blosc/api.py:206-257): the input stored raw, with the filter
+    flags cleared, when the codec does not shrink it."""
+    compressor = _chunk.registered_codec(opts.codec)
+    compressed = compressor.compress(
+        _chunk.filter_block(raw, opts.type_size, opts.shuffle), opts.level)
+    if len(compressed) >= len(raw):
+        compressed, flags = raw, FLAG_MEMCPY
+    else:
+        flags = {Shuffle.SHUFFLE: FLAG_SHUFFLE,
+                 Shuffle.BITSHUFFLE: FLAG_BITSHUFFLE}.get(opts.shuffle, 0)
+    header = Header(
+        version=FORMAT_VERSION, version_lz=int(opts.codec), flags=flags,
+        type_size=min(opts.type_size, 255), nbytes_orig=len(raw),
+        block_size=len(raw), nbytes_comp=HEADER_SIZE + len(compressed),
     )
+    return header.to_bytes() + bytes(compressed)
 
 
 def _coerce_buffer(item):
@@ -158,8 +190,9 @@ def compress_batch_with_options(items, opts: Options) -> list[bytes]:
 
 
 def _decode_native_map() -> bytes:
-    """Header codec id -> native codec id, for the batch decoders."""
-    return bytes(_chunk.native_pipeline_codec(cid, 1)[0] for cid in range(6))
+    """Header codec id -> native codec id, for the batch decoders; 0xFF
+    for an id the registry route decodes (≙ tpu_blosc/api.py:366-377)."""
+    return bytes((_chunk.native_pipeline_codec(cid, 1) or (0xFF,))[0] for cid in range(6))
 
 
 def decompress_batch(items, type_size: int = 0) -> list[bytes]:
@@ -234,25 +267,25 @@ def decompress_with_size(data, type_size: int) -> bytes:
         return _chunk.decompress_chunked(raw, header, type_size)
     ts = type_size if type_size > 0 else header.type_size
 
+    decompressed = raw[HEADER_SIZE : header.nbytes_comp]
     if not header.is_memcpy:
         native = _chunk.native_pipeline_codec(header.codec, 1)
-        if native is None:
-            raise InvalidCodecError(
-                "blosc: unsupported codec: "
-                f"{Codec(header.codec) if header.codec < 6 else header.codec}"
+        if native is not None:
+            # codec decode and unfilter straight into the result in one C call
+            return _nb.decompress_frame(
+                raw, HEADER_SIZE, header.nbytes_comp - HEADER_SIZE,
+                header.nbytes_orig, ts, int(header.shuffle_mode), native[0],
             )
-        # codec decode and unfilter straight into the result in one C call
-        return _nb.decompress_frame(
-            raw, HEADER_SIZE, header.nbytes_comp - HEADER_SIZE,
-            header.nbytes_orig, ts, int(header.shuffle_mode), native[0],
-        )
-
-    decompressed = raw[HEADER_SIZE : header.nbytes_comp]
+        codec = _chunk.registered_codec(
+            header.codec, Codec(header.codec) if header.codec < 6 else header.codec)
+        decompressed = codec.decompress(decompressed, header.nbytes_orig)
     # the reference unshuffles even memcpy frames (blosc.go:398-426)
     if header.has_bitshuffle and ts > 1:
         decompressed = _nb.bitunshuffle(decompressed, ts).tobytes()
     elif header.has_shuffle and ts > 1:
         decompressed = _nb.unshuffle(decompressed, ts).tobytes()
+    else:
+        decompressed = bytes(decompressed)
     if len(decompressed) != header.nbytes_orig:
         raise SizeMismatchError(
             f"blosc: decompressed size mismatch: got {len(decompressed)}, "

@@ -1,8 +1,8 @@
 """Multi-block (FLAG_SPLIT) frames on the native host codec.
 
 Counterpart: ``tpu_blosc/chunk.py``: ``choose_block_size`` (:124-133),
-``_native_pipeline_codec`` (:79-110), the native branch of
-``compress_chunked`` (:156-210), ``parse_block_table`` (:289-299),
+``_native_pipeline_codec`` with its memo (:62-110), ``compress_chunked``
+(:156-247), ``parse_block_table`` (:289-299),
 ``_decompress_chunked_native`` and ``_validate_block_layout``
 (:302-382), the range decoders ``decompress_single_block`` and
 ``decompress_block_run`` (:385-463) and ``decompress_chunked`` (:466-517).
@@ -14,7 +14,10 @@ Layout after the 16-byte header (FLAG_SPLIT set):
                  bit 31 = block stored memcpy (raw, unfiltered)
     then         the payloads, in block order
 
-The port has no codec registry: a codec the native library lacks raises
+Codec IDs whose registry entry is the builtin codec run the native
+pipeline; any other registered codec (a new ID, or one registered in
+place of a builtin) is called on each block, with the memcpy fallback,
+as in the JAX package (codecs/registry.py).  An ID with no codec raises
 InvalidCodecError.
 """
 
@@ -24,6 +27,9 @@ import struct
 
 import numpy as np
 
+from . import filters
+from .codecs.registry import get_codec, registry_version
+from .codecs.standard import hc_depth_for_level, is_builtin
 from .errors import (
     DataTooLargeError,
     DecompressionFailedError,
@@ -53,25 +59,32 @@ DEFAULT_AUTO_BLOCK = 1024 * 1024
 MIN_BLOCK = 4096
 
 
-def hc_depth_for_level(level: int) -> int:
-    """Map Blosc levels 1-9 to the LZ4HC search depth
-    (≙ tpu_blosc/codecs/lz4_ref.py:229-241)."""
-    if level <= 3:
-        return 2
-    if level <= 5:
-        return 16
-    if level <= 7:
-        return 64
-    return 256
+_resolve_cache: dict = {}
 
 
 def native_pipeline_codec(codec: int, level: int) -> tuple[int, int] | None:
     """Frame codec ID -> (native pipeline codec, level or depth), or None
-    for an ID the native library does not implement.
+    when the registry entry of the ID is not its builtin codec: an ID the
+    native library lacks, or one a register_codec call took over.
 
     LZ4 ignores the level, LZ4HC maps it to a chain depth, ZLIB passes it
-    through and ZSTD maps it to the zstd levels 1/3/9/19.
+    through and ZSTD maps it to the zstd levels 1/3/9/19.  Memoized on the
+    registry's version.
     """
+    key = (codec, level, registry_version())
+    try:
+        return _resolve_cache[key]
+    except KeyError:
+        pass
+    if len(_resolve_cache) > 256:  # registry churn; stay bounded
+        _resolve_cache.clear()
+    result = _resolve_cache[key] = _native_pipeline_codec(codec, level)
+    return result
+
+
+def _native_pipeline_codec(codec: int, level: int) -> tuple[int, int] | None:
+    if not is_builtin(codec):
+        return None
     if codec == Codec.BLOSCLZ:
         return _native.NATIVE_BLOSCLZ, 1
     if codec == Codec.LZ4:
@@ -86,6 +99,103 @@ def native_pipeline_codec(codec: int, level: int) -> tuple[int, int] | None:
         zstd_level = 1 if level <= 2 else 3 if level <= 4 else 9 if level <= 6 else 19
         return _native.NATIVE_ZSTD, zstd_level
     return None
+
+
+def registered_codec(codec_id: int, what=None):
+    """The codec registered under ``codec_id``; InvalidCodecError naming
+    ``what`` (default the ID) when there is none."""
+    impl = get_codec(codec_id)
+    if impl is None:
+        raise InvalidCodecError(
+            f"blosc: unsupported codec: {codec_id if what is None else what}")
+    return impl
+
+
+def filter_block(block, type_size: int, mode: int) -> bytes:
+    """The host filter of ``mode`` over one block; unfiltered (NOSHUFFLE,
+    or one-byte elements) it is the block itself."""
+    if mode in (Shuffle.SHUFFLE, Shuffle.BITSHUFFLE) and type_size > 1:
+        return filters.filter_bytes(block, type_size, mode).tobytes()
+    return bytes(block)
+
+
+def unfilter_block(block, type_size: int, mode: int) -> bytes:
+    """Inverse of filter_block."""
+    if mode in (Shuffle.SHUFFLE, Shuffle.BITSHUFFLE) and type_size > 1:
+        return filters.unfilter_bytes(block, type_size, mode).tobytes()
+    return bytes(block)
+
+
+def registry_payloads(filtered, block_size: int, opts: Options,
+                      raw=None) -> tuple[list[bytes], list[bool]]:
+    """(payloads, memcpy flags) of the registered codec of ``opts.codec``
+    over each block of the filtered stream ``filtered``
+    (≙ tpu_blosc/chunk.py:212-226, tpu_blosc/device.py:826-856).  A block
+    the codec does not shrink is stored raw: its bytes from ``raw`` (the
+    unfiltered stream) when given, else the block unfiltered back."""
+    compressor = registered_codec(opts.codec)
+    payloads: list[bytes] = []
+    memf: list[bool] = []
+    for pos in range(0, len(filtered), block_size):
+        block = bytes(filtered[pos : pos + block_size])
+        comp = compressor.compress(block, opts.level)
+        if len(comp) >= len(block):
+            payloads.append(bytes(raw[pos : pos + len(block)]) if raw is not None
+                            else unfilter_block(block, opts.type_size, opts.shuffle))
+            memf.append(True)
+        else:
+            payloads.append(bytes(comp))
+            memf.append(False)
+    return payloads, memf
+
+
+def registry_blocks(raw, block_size: int, opts: Options) -> tuple[list[bytes], list[bool]]:
+    """registry_payloads of the unfiltered stream ``raw``, each block
+    filtered on the host first (≙ tpu_blosc/chunk.py:212-226)."""
+    filtered = b"".join(filter_block(raw[i : i + block_size], opts.type_size, opts.shuffle)
+                        for i in range(0, len(raw), block_size))
+    return registry_payloads(filtered, block_size, opts, raw)
+
+
+def registry_block(decompressor, payload, this_block: int, is_memcpy: bool, bi: int) -> bytes:
+    """Block ``bi`` of a registered codec's frame, still filtered: its
+    payload when it was stored raw, else the codec's decode; its size must
+    be ``this_block``."""
+    if is_memcpy:
+        if len(payload) != this_block:
+            raise SizeMismatchError(f"blosc: decompressed size mismatch in memcpy block {bi}")
+        return bytes(payload)
+    dec = decompressor.decompress(payload, this_block)
+    if len(dec) != this_block:
+        raise SizeMismatchError(
+            f"blosc: decompressed size mismatch: block {bi} got {len(dec)}, "
+            f"expected {this_block}"
+        )
+    return dec
+
+
+def registry_blocks_decode(raw: bytes, header: Header, entries: list[tuple[int, bool]],
+                           offset: int, out: np.ndarray) -> None:
+    """The registered codec's decode of every block of a FLAG_SPLIT frame,
+    its payloads from ``offset`` on, into the uint8 array ``out`` of
+    ``nbytes_orig`` bytes, still filtered (blocks stored raw come back
+    raw; ≙ tpu_blosc/chunk.py:475-517).  The caller validated the
+    layout."""
+    n, block_size = header.nbytes_orig, header.block_size
+    decompressor = None
+    if not all(m for _, m in entries):
+        decompressor = registered_codec(header.codec)
+    for i, (psize, is_memcpy) in enumerate(entries):
+        if offset + psize > header.nbytes_comp or offset + psize > len(raw):
+            raise InvalidDataError(
+                "blosc: invalid compressed data: block payload overruns frame"
+            )
+        pos = i * block_size
+        this_block = min(block_size, n - pos)
+        block = registry_block(decompressor, raw[offset : offset + psize], this_block,
+                               is_memcpy, i)
+        out[pos : pos + this_block] = np.frombuffer(block, np.uint8)
+        offset += psize
 
 
 def choose_block_size(n: int, type_size: int, requested: int = 0) -> int:
@@ -128,18 +238,27 @@ def split_header(opts: Options, n: int, block_size: int,
 
 def compress_chunked(raw, opts: Options) -> bytes:
     """Compress into a multi-block FLAG_SPLIT frame on the host."""
-    native = native_pipeline_codec(opts.codec, opts.level)
-    if native is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
-    native_codec, depth = native
     n = len(raw)
     block_size = choose_block_size(n, opts.type_size, opts.block_size)
+    native = native_pipeline_codec(opts.codec, opts.level)
+    if native is None:  # the registry route
+        return assemble_payload_frame(opts, n, block_size, *registry_blocks(raw, block_size, opts))
+    native_codec, depth = native
     slots, slot, sizes, memcpy_flags = _native.compress_slots(
         raw, block_size, opts.type_size, int(opts.shuffle),
         native_codec, depth, num_threads=opts.num_threads,
     )
     return assemble_split_frame(opts, n, block_size, slots, slot, sizes,
                                 memcpy_flags)
+
+
+def assemble_payload_frame(opts: Options, n: int, block_size: int,
+                           payloads: list[bytes], memf: list[bool]) -> bytes:
+    """The FLAG_SPLIT frame of ``n`` bytes whose blocks are ``payloads``,
+    in order (split_header checks the uint32 fields)."""
+    entries = [len(p) | (ENTRY_MEMCPY if m else 0) for p, m in zip(payloads, memf)]
+    prefix = split_header(opts, n, block_size, entries, sum(len(p) for p in payloads))
+    return prefix + b"".join(payloads)
 
 
 def assemble_split_frame(opts: Options, n: int, block_size: int,
@@ -248,11 +367,13 @@ def decompress_single_block(raw: bytes, header: Header,
             )
         return bytes(raw[poff : poff + psize])
     native = native_pipeline_codec(header.codec, 1)
-    if native is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {header.codec}")
-    return _native.decompress_frame(
-        bytes(raw), poff, psize, this_block, type_size, int(header.shuffle_mode), native[0]
-    )
+    if native is not None:
+        return _native.decompress_frame(
+            bytes(raw), poff, psize, this_block, type_size, int(header.shuffle_mode), native[0]
+        )
+    block = registry_block(registered_codec(header.codec), raw[poff : poff + psize],
+                           this_block, False, bi)
+    return unfilter_block(block, type_size, header.shuffle_mode)
 
 
 def decompress_block_run(raw: bytes, header: Header,
@@ -279,10 +400,20 @@ def decompress_chunked(raw: bytes, header: Header, type_size: int) -> bytes:
     entries, offset = parse_block_table(raw, header)
     if type_size <= 0:
         type_size = header.type_size
-    validate_block_layout(header.nbytes_orig, header.block_size, len(entries))
+    n, block_size = header.nbytes_orig, header.block_size
+    validate_block_layout(n, block_size, len(entries))
     native = native_pipeline_codec(header.codec, 1)
-    if native is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {header.codec}")
-    return decompress_chunked_native(
-        raw, header, entries, offset, type_size, native[0]
-    )
+    if native is not None:
+        return decompress_chunked_native(
+            raw, header, entries, offset, type_size, native[0]
+        )
+    # the registry route: decode every block, then unfilter those not
+    # stored raw (≙ tpu_blosc/chunk.py:475-517)
+    out = np.empty(n, np.uint8)
+    registry_blocks_decode(raw, header, entries, offset, out)
+    for i, (_, is_memcpy) in enumerate(entries):
+        if not is_memcpy:
+            block = out[i * block_size : (i + 1) * block_size]
+            block[:] = np.frombuffer(
+                unfilter_block(block, type_size, header.shuffle_mode), np.uint8)
+    return out.tobytes()

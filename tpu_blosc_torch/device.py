@@ -20,10 +20,21 @@ Decompress ("device"): the host decodes the codec stage only, one copy
 takes the still-filtered stream to the device, and the device unfilters
 it, passing blocks that were stored raw through untouched.
 
+A codec registered with ``register_codec`` (a new ID, or one in place of
+a builtin) changes the host stage only: the filter still runs on the
+device, and the registered codec compresses the filtered blocks one by
+one (stage 2), to the frame ``compress_with_options`` writes under the
+same registry; the "device" decode has it decode the blocks on the host
+and unfilters them on the device (the JAX package decodes such a frame
+on the host, tpu_blosc/device.py:1664-1666).
+
 Match ("match", and "auto", which is the same): for LZ4 and LZ4HC, match
 discovery on the device and LZ4 streams written from literal records
-(``match.py``); other codecs, and data the match strategy does not suit,
-take the transfer route.
+(``match.py``); other codecs, a codec registered in place of LZ4 or LZ4HC,
+and data the match strategy does not suit, take the transfer route.  (The
+JAX package writes such an override's rows with its native LZ4 emitter and
+the tail with the registered codec, a frame the override's own decoder
+may not read; the port does not copy that.)
 
 Rle ("rle"): for LZ4 and LZ4HC, run scan on the device and LZ4 streams
 written from run records (``rle.py``), with the same fallbacks to the
@@ -55,13 +66,17 @@ from .api import (
     get_decompressed_size,
 )
 from .chunk import (
+    assemble_payload_frame,
     assemble_split_frame,
     choose_block_size,
     native_pipeline_codec,
     parse_block_table,
     payload_offsets,
+    registry_blocks_decode,
+    registry_payloads,
 )
-from .errors import InvalidCodecError, InvalidDataError
+from .codecs.registry import get_codec
+from .errors import InvalidDataError
 from .format import HEADER_SIZE, Codec, Shuffle, parse_header
 from .native import backend as _nb
 from .options import Options
@@ -121,7 +136,9 @@ def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str)
         return compress_with_options(flat.cpu().numpy(), opts)
     engage = {"match": _match.compress_array_match, "auto": _match.compress_array_match,
               "rle": _rle.compress_array_rle}.get(strategy)
-    if engage is not None and opts.codec in (Codec.LZ4, Codec.LZ4HC):
+    # the strategies emit the native LZ4 format: not for a registered override
+    if (engage is not None and opts.codec in (Codec.LZ4, Codec.LZ4HC)
+            and native_pipeline_codec(opts.codec, opts.level) is not None):
         frame = engage(flat, opts, nb_full, block_size)
         if frame is not None:
             return frame
@@ -156,6 +173,9 @@ def _compress_array_stage2(staged) -> bytes:
     if isinstance(staged, bytes):
         return staged
     filtered, opts, block_size = staged
+    if native_pipeline_codec(opts.codec, opts.level) is None:
+        payloads, memf = registry_payloads(filtered, block_size, opts)
+        return assemble_payload_frame(opts, filtered.size, block_size, payloads, memf)
     return assemble_split_frame(
         opts, filtered.size, block_size, *compress_filtered_slots(filtered, opts, block_size)
     )
@@ -163,16 +183,14 @@ def _compress_array_stage2(staged) -> bytes:
 
 def compress_filtered_slots(filtered: np.ndarray, opts: Options, block_size: int):
     """``native.backend.compress_slots`` of an already filtered stream
-    (whole blocks of ``block_size``, the last one may be short).
+    (whole blocks of ``block_size``, the last one may be short), for a
+    codec the native pipeline serves.
 
     Blocks that take the memcpy fallback must carry their raw bytes, so
     their filtered bytes are unfiltered back on the host, with the
     inverse of the filter that made them.
     """
-    native = native_pipeline_codec(opts.codec, opts.level)
-    if native is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
-    native_codec, depth = native
+    native_codec, depth = native_pipeline_codec(opts.codec, opts.level)
     slots, slot, sizes, memcpy_flags = _nb.compress_slots(
         filtered, block_size, opts.type_size, _PREFILTERED, native_codec,
         depth, num_threads=opts.num_threads,
@@ -230,15 +248,19 @@ def host_decode(data, n: int) -> torch.Tensor:
     return host
 
 
-def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int,
+def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int | None,
                             forbid_memcpy: bool = False):
     """Host decode of a FLAG_SPLIT frame's blocks to the still-filtered
-    stream (shuffle mode 0), as a CPU uint8 tensor, with the block table.
-    None when the layout does not add up: the host path then raises with
-    full context (≙ tpu_blosc/device.py:1592-1627).  Blocks stored raw
-    come back raw; with ``forbid_memcpy`` a frame that has one gives None
-    before anything is decoded."""
+    stream (shuffle mode 0), as a CPU uint8 tensor, with the block table;
+    ``native_codec`` None decodes with the codec registered under the
+    frame's ID, block by block.  None when the layout does not add up or
+    no codec serves the ID: the host path then raises with full context
+    (≙ tpu_blosc/device.py:1592-1627).  Blocks stored raw come back raw;
+    with ``forbid_memcpy`` a frame that has one gives None before anything
+    is decoded."""
     if header.nbytes_comp > len(raw) or header.nbytes_comp < HEADER_SIZE:
+        return None
+    if native_codec is None and get_codec(header.codec) is None:
         return None
     entries, offset = parse_block_table(raw, header)
     if len(entries) != -(-n // header.block_size):
@@ -249,6 +271,9 @@ def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int,
     if int(offsets[-1] + psizes[-1]) > min(len(raw), header.nbytes_comp):
         return None
     buf = torch.empty(n, dtype=torch.uint8)
+    if native_codec is None:
+        registry_blocks_decode(raw, header, entries, offset, buf.numpy())
+        return buf, entries
     _nb.decompress_blocks(
         np.frombuffer(raw, np.uint8), offsets, psizes, is_memcpy,
         header.block_size, n, header.type_size, 0, native_codec,
@@ -271,11 +296,12 @@ def _decompress_array_devfilter(data, n: int, device: torch.device):
     quantum = 8 * ts if mode == Shuffle.BITSHUFFLE else ts
     if ts < 2 or bs == 0 or bs % quantum:
         return None
-    native = native_pipeline_codec(header.codec, 1)
     nb_full = n // bs
-    if native is None or nb_full == 0:
+    if nb_full == 0:
         return None
-    decoded = _decode_filtered_blocks(raw, header, n, native[0])
+    # a registered codec decodes the blocks on the host, the card unfilters
+    native = native_pipeline_codec(header.codec, 1)
+    decoded = _decode_filtered_blocks(raw, header, n, native[0] if native else None)
     if decoded is None:
         return None
     host, entries = decoded

@@ -35,9 +35,14 @@ import torch
 import torch.distributed as dist
 
 from .. import filters
-from ..chunk import choose_block_size, native_pipeline_codec
+from ..chunk import (
+    choose_block_size,
+    native_pipeline_codec,
+    registered_codec,
+    registry_payloads,
+)
 from ..device import _decode_filtered_blocks, compress_filtered_slots
-from ..errors import InvalidCodecError, InvalidDataError
+from ..errors import InvalidDataError
 from ..filters import rle as _rle
 from ..format import Shuffle, parse_header
 from ..options import Options
@@ -246,8 +251,9 @@ def compress_chunked_mesh(data, opts: Options, group=None, device=None,
     raw = np.frombuffer(data.tobytes() if isinstance(data, np.ndarray) else bytes(data),
                         dtype=np.uint8)
     opts = opts.clamped()
-    if native_pipeline_codec(opts.codec, opts.level) is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
+    native = native_pipeline_codec(opts.codec, opts.level)
+    if native is None:  # a registered codec, called block by block
+        registered_codec(opts.codec)
     device = filters.target_device(device, "compress_chunked_mesh")
     n = raw.size
     if n == 0:
@@ -291,7 +297,10 @@ def compress_chunked_mesh(data, opts: Options, group=None, device=None,
             filtered[body - lo_byte :] = (
                 filters.filter_bytes(tail, ts, opts.shuffle) if tail.size >= ts else tail
             )
-        local = slot_payloads(*compress_filtered_slots(filtered, opts, block_size))
+        if native is None:
+            local = registry_payloads(filtered, block_size, opts, raw[lo_byte:hi_byte])
+        else:
+            local = slot_payloads(*compress_filtered_slots(filtered, opts, block_size))
 
     payloads, memf = allgather_payloads(*local, group)
     nb_total = -(-n // block_size)
@@ -342,12 +351,14 @@ def decompress_chunked_mesh(data, group=None, device=None, type_size: int = 0) -
     ts = type_size if type_size > 0 else header.type_size
     n, bs = header.nbytes_orig, header.block_size
     quantum = 8 * ts if mode == Shuffle.BITSHUFFLE else ts
-    native = native_pipeline_codec(header.codec, 1)
     if (not header.is_split or mode == Shuffle.NOSHUFFLE or ts < 2 or bs == 0
-            or bs % quantum or native is None or n < bs):
+            or bs % quantum or n < bs):
         return decompress_with_size(raw, type_size)
-    decoded = _decode_filtered_blocks(raw, header, n, native[0])
-    if decoded is None:  # the layout does not add up: the host path raises
+    # a registered codec decodes the blocks on the host, block by block
+    # (≙ tpu_blosc/dist/mesh.py:497-529)
+    native = native_pipeline_codec(header.codec, 1)
+    decoded = _decode_filtered_blocks(raw, header, n, native[0] if native else None)
+    if decoded is None:  # the layout does not add up, or no codec: the host path raises
         return decompress_with_size(raw, type_size)
     stream, entries = decoded
     host = stream.numpy()

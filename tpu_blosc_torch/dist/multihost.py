@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from .. import chunk as _chunk
-from ..errors import InvalidCodecError, InvalidDataError
+from ..chunk import assemble_payload_frame
+from ..errors import InvalidDataError
 from ..format import HEADER_SIZE, Header, parse_header
 from ..native import backend as _nb
 from ..options import Options
@@ -56,10 +57,11 @@ def slot_payloads(slots: np.ndarray, slot: int, sizes: np.ndarray,
 
 
 def _compress_local_blocks(local, block_size: int, opts: Options):
-    """Filter and compress this process's blocks in one native call."""
+    """Filter and compress this process's blocks: in one native call, or
+    block by block with a registered codec (≙ tpu_blosc/dist/multihost.py:61-90)."""
     native = _chunk.native_pipeline_codec(opts.codec, opts.level)
     if native is None:
-        raise InvalidCodecError(f"blosc: unsupported codec: {opts.codec}")
+        return _chunk.registry_blocks(local, block_size, opts)
     if len(local) == 0:  # more processes than blocks
         return [], []
     native_codec, depth = native
@@ -107,15 +109,6 @@ def allgather_payloads(payloads: list[bytes], memf: list[bool],
             all_memf.append(bool(tables[p, 1, k]))
             off += sz
     return all_payloads, all_memf
-
-
-def assemble_payload_frame(opts: Options, n: int, block_size: int,
-                           payloads: list[bytes], memf: list[bool]) -> bytes:
-    """The FLAG_SPLIT frame of ``n`` bytes whose blocks are ``payloads``,
-    in order (``chunk.split_header`` checks the uint32 fields)."""
-    entries = [len(p) | (_chunk.ENTRY_MEMCPY if m else 0) for p, m in zip(payloads, memf)]
-    prefix = _chunk.split_header(opts, n, block_size, entries, sum(len(p) for p in payloads))
-    return prefix + b"".join(payloads)
 
 
 def compress_chunked_multihost(global_n: int, local_data, opts: Options,

@@ -77,6 +77,11 @@ _SIGNATURES = {
         _int, _int, _int,        # ts, shuffle_mode, codec
     ]),
     "tpb_lz4_compress": (_i64, [_p, _i64, _p, _i64, _int]),
+    "tpb_lz4_decompress": (_i64, [_p, _i64, _p, _i64]),
+    "tpb_blosclz_compress": (_i64, [_p, _i64, _p, _i64]),
+    "tpb_blosclz_decompress": (_i64, [_p, _i64, _p, _i64]),
+    "tpb_snappy_compress": (_i64, [_p, _i64, _p, _i64]),
+    "tpb_snappy_decompress": (_i64, [_p, _i64, _p, _i64]),
     "tpb_lz4_emit_runs": (_i64, [_p, _p, _i64, _i64, _p, _i64]),
     "tpb_lz4_emit_mixed": (_i64, [
         _p, _p, _i64,            # lit_pos, lit_bytes, nlit
@@ -199,6 +204,51 @@ def lz4_compress(data, depth: int = 1) -> bytes:
     if written < 0:
         raise RuntimeError(f"native lz4 compress failed ({written})")
     return out[:written].tobytes()
+
+
+def _encode(name: str, what: str, data, cap_of) -> bytes:
+    """One block through the export ``name``, into ``cap_of(n)`` bytes."""
+    a = as_u8(data)
+    cap = cap_of(a.size)
+    out = np.empty(cap, dtype=np.uint8)
+    written = getattr(lib(), name)(_addr(a), a.size, _addr(out), cap)
+    if written < 0:
+        raise RuntimeError(f"native {what} compress failed ({written})")
+    return out[:written].tobytes()
+
+
+def _decode(name: str, what: str, data, expected_size: int) -> bytes:
+    """One block through the export ``name``, at most ``expected_size``
+    bytes out; a malformed stream raises DecompressionFailedError."""
+    a = as_u8(data)
+    out, addr = alloc_bytes(expected_size)
+    written = getattr(lib(), name)(_addr(a), a.size, addr, expected_size)
+    if written < 0:
+        raise DecompressionFailedError(f"{what}: malformed stream (code {written})")
+    return out if written == expected_size else out[:written]
+
+
+def lz4_decompress(data, expected_size: int) -> bytes:
+    """One LZ4 block (≙ tpu_blosc/native/backend.py:293-302)."""
+    return _decode("tpb_lz4_decompress", "lz4", data, expected_size)
+
+
+def blosclz_compress(data) -> bytes:
+    """One BloscLZ block (≙ tpu_blosc/native/backend.py:305-314)."""
+    return _encode("tpb_blosclz_compress", "blosclz", data, lambda n: n + n // 32 + 16)
+
+
+def blosclz_decompress(data, expected_size: int) -> bytes:
+    return _decode("tpb_blosclz_decompress", "blosclz", data, expected_size)
+
+
+def snappy_compress(data) -> bytes:
+    """One raw Snappy block (≙ tpu_blosc/native/backend.py:331-340)."""
+    return _encode("tpb_snappy_compress", "snappy", data, lambda n: 32 + n + n // 6)
+
+
+def snappy_decompress(data, expected_size: int) -> bytes:
+    return _decode("tpb_snappy_decompress", "snappy", data, expected_size)
 
 
 def lz4_emit_runs(vals: np.ndarray, lens: np.ndarray, n: int) -> bytes:
