@@ -5,12 +5,13 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the native host codec (g++) and the CUDA kernels (nvcc, one
-process per source in csrc/, all at once, beside the g++ build) from the
-sources in the checkout into tpu_blosc_torch/_build/, then:
+It builds the native host codec (g++, from the port's own copy of the
+source, then its fastcall module with gcc) and the CUDA kernels (nvcc,
+one process per source in csrc/, all at once, beside the g++ build) from
+the sources in the checkout into tpu_blosc_torch/_build/, then:
 
-1. prints the card, its power limit, torch, CUDA and nvcc versions and
-   the build times;
+1. prints the card, its power limit, the host CPU, torch, CUDA and nvcc
+   versions, the build times and whether the fastcall module loaded;
 2. holds each kernel against its plain PyTorch version on the card:
    - the shuffle pair, on both of its paths (vec16 and generic): random
      bytes at type sizes 2, 3, 4, 5, 8, 12, 16, 32 and 300, each at
@@ -122,7 +123,23 @@ sources in the checkout into tpu_blosc_torch/_build/, then:
     process loads the set with load_pytree_sharded and load_leaf_sharded;
     beside the ranks, one ``python -m tpu_blosc_torch info`` of A's frame
     in a subprocess;
-14. prints the device busy share of the traces of A, F and I (the union of
+14. standalone: copies tpu_blosc_torch/ alone into a temporary
+    directory and, in a subprocess that can import no copy of tpu_blosc,
+    builds it there (host codec, fastcall module, CUDA kernels) and runs
+    path A at 16 MiB; the frame must be this process's, the launches A's;
+15. native-less: a subprocess with TPU_BLOSC_NO_NATIVE=1 (the pure-Python
+    codecs) runs compress and decompress of a 4 MiB host float32 ramp
+    (LZ4 5, ts 4) under byte and bit shuffle, then compress_array (1 MiB
+    blocks) and decompress_array(strategy="device") of it as a CUDA
+    tensor; each call must launch its filter kernel exactly once, and
+    each frame must decode here on the native route and equal the frame
+    the child writes with its host filter forced onto the plain version;
+16. fastcall: 10,000 compress() calls of the 100 KB i % 256 ramp (LZ4 5,
+    shuffle, ts 4) in a subprocess with the fastcall module (it must
+    load where Python's headers are present) and 10,000 in one with
+    TPU_BLOSC_NO_FAST=1 (ctypes); the frames must be equal; microseconds
+    a call of each, beside the card and the host CPU;
+17. prints the device busy share of the traces of A, F and I (the union of
     their kernel, copy and memset intervals over the traced window), the
     kernels' JSON line (each kernel's launches on the main paths, its
     time, its plain version's, the time of the one PyTorch call that
@@ -263,8 +280,10 @@ def phase_environment() -> None:
         for b in builds:
             b.result()
     print(f"build, both at once: {time.perf_counter() - t0:.1f} s; host codec "
-          f"{backend.build_seconds:.1f} s compiling, CUDA kernels "
-          f"({len(kernels.SOURCES)} sources) {kernels.build_seconds:.1f} s compiling")
+          f"{backend.build_seconds:.1f} s compiling, fastcall module "
+          f"{backend.fast_build_seconds or 0:.1f} s after it ({backend.fastcall_status()}), "
+          f"CUDA kernels ({len(kernels.SOURCES)} sources) {kernels.build_seconds:.1f} s "
+          f"compiling; host {cpu_line()}")
     print_kernel_resources(kernels)
 
 
@@ -2607,6 +2626,268 @@ def check_path_j(tbt, records: list, host_frame: bytes, workdir: str) -> None:
           f"card {gpu_line()}")
 
 
+def cpu_line() -> str:
+    """The host's CPU model and its logical cores: the host phases time
+    host code.  The model comes from /proc/cpuinfo, else from lscpu, else
+    only the architecture is known."""
+    import platform
+
+    model = None
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key.strip().lower() in ("model name", "cpu model") and value.strip():
+                model = value.strip()
+                break
+    if model is None and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() in ("Model name", "Vendor ID") and value.strip():
+                model = value.strip()
+                break
+    return f"{model or 'CPU model not reported'} ({platform.machine()}), " \
+           f"{os.cpu_count()} logical cores"
+
+
+def card_and_host() -> str:
+    return f"card {gpu_line()}; host {cpu_line()}"
+
+
+def run_child(code: str, args: list, what: str, cwd: str, env: dict | None = None,
+              timeout: int = 600) -> dict:
+    """Run ``code`` in a fresh interpreter; its last stdout line is a JSON
+    object, returned.  A child that fails fails the run."""
+    proc = subprocess.run([sys.executable, "-c", code, *map(str, args)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}: {proc.stdout[-1500:]} "
+                                f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+STANDALONE_MIB = 16
+
+# Run from a directory that holds a copy of tpu_blosc_torch/ and nothing
+# else of the repository: build there, then path A at argv[1] MiB.
+STANDALONE_CHILD = r"""
+import importlib.util, json, os, sys, time
+from concurrent.futures import ThreadPoolExecutor
+assert importlib.util.find_spec("tpu_blosc") is None, "a copy of tpu_blosc is importable"
+import torch
+import tpu_blosc_torch as tbt
+from tpu_blosc_torch.filters import kernels
+from tpu_blosc_torch.native import backend
+here = os.path.realpath(os.getcwd())
+for path in (backend.SOURCE, backend.LIB_PATH, backend.FAST_PATH, kernels.CSRC, kernels.LIB_PATH):
+    assert os.path.realpath(path).startswith(here + os.sep), path
+t0 = time.perf_counter()
+with ThreadPoolExecutor(2) as pool:
+    for build in [pool.submit(backend.lib), pool.submit(kernels.lib)]:
+        build.result()
+build_s = time.perf_counter() - t0
+x = torch.arange(int(sys.argv[1]) << 18, dtype=torch.float32, device="cuda")
+opts = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE, type_size=4)
+kernels.reset_launches()
+frame = tbt.compress_array(x, opts)
+y = tbt.decompress_array(frame, torch.float32, device="cuda", strategy="device")
+torch.cuda.synchronize()
+launches = dict(kernels.launches)
+assert torch.equal(x, y)
+with open("a.bl2", "wb") as f:
+    f.write(frame)
+print(json.dumps({"build_s": build_s, "host_codec_s": backend.build_seconds,
+                  "fastcall_s": backend.fast_build_seconds, "kernels_s": kernels.build_seconds,
+                  "fastcall": backend.fastcall_status(), "launches": launches}))
+"""
+
+
+def phase_standalone(tbt, workdir: str) -> dict:
+    """Copy only tpu_blosc_torch/ into ``workdir``; in a subprocess whose
+    sys.path holds no copy of tpu_blosc, build there and run path A at
+    STANDALONE_MIB MiB on the card.  The frame must equal this process's.
+    Returns the kernel launches of the child's path A."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    copy = os.path.join(workdir, "standalone")
+    shutil.copytree(os.path.join(here, "tpu_blosc_torch"), os.path.join(copy, "tpu_blosc_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    res = run_child(STANDALONE_CHILD, [STANDALONE_MIB], "standalone", copy, env)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(copy, "a.bl2"), "rb") as f:
+        frame = f.read()
+    x = torch.arange(STANDALONE_MIB << 18, dtype=torch.float32, device=DEVICE)
+    opts = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE, type_size=4)
+    check(frame == tbt.compress_array(x, opts), "standalone: the copy's frame is this process's")
+    check_fast_path("standalone A", res["launches"])
+    check_fastcall_status(res["fastcall"], "standalone")
+    print(f"standalone: a copy of tpu_blosc_torch/ alone built in {res['build_s']:.1f} s "
+          f"(host codec {res['host_codec_s']:.1f} s, fastcall module {res['fastcall_s'] or 0:.1f} s "
+          f"after it, CUDA kernels {res['kernels_s']:.1f} s, at once), {res['fastcall']}; "
+          f"path A at {STANDALONE_MIB} MiB gave this process's frame; child {wall:.1f} s "
+          f"in all ({card_and_host()})")
+    return res["launches"]
+
+
+NATIVE_LESS_MIB = 4
+
+# Run with TPU_BLOSC_NO_NATIVE=1: argv[1] a directory for the frames,
+# argv[2] the MiB of the float32 ramp.
+NATIVE_LESS_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import tpu_blosc_torch as tbt
+from tpu_blosc_torch.filters import kernels
+from tpu_blosc_torch.native import backend
+out_dir, mib = sys.argv[1], int(sys.argv[2])
+assert not backend.available() and tbt.backend_name() == "python+cuda", tbt.backend_name()
+kernels.lib()  # built before the timed calls
+data = np.arange(mib << 18, dtype=np.float32).tobytes()
+x = torch.from_numpy(np.frombuffer(data, np.float32).copy()).to("cuda")
+runs, frames = {}, {}
+
+
+def timed(name, fn):
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    runs[name] = {"s": time.perf_counter() - t0, "launches": dict(kernels.launches)}
+    return out
+
+
+def opts(mode, block_size):
+    return tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle[mode], type_size=4,
+                       block_size=block_size)
+
+
+for mode in ("SHUFFLE", "BITSHUFFLE"):
+    frames["compress " + mode] = timed("compress " + mode, lambda: tbt.compress(
+        data, tbt.Codec.LZ4, 5, tbt.Shuffle[mode], 4))
+    back = timed("decompress " + mode, lambda: tbt.decompress(frames["compress " + mode]))
+    assert back == data
+    frames["compress_array " + mode] = timed(
+        "compress_array " + mode, lambda: tbt.compress_array(x, opts(mode, 1 << 20)))
+    y = timed("decompress_array(device) " + mode, lambda: tbt.decompress_array(
+        frames["compress_array " + mode], torch.float32, device="cuda", strategy="device"))
+    assert torch.equal(x, y)
+# the device entry point's frames against the host route's (plain filters)
+equal_host = {
+    "compress_array " + mode: frames["compress_array " + mode]
+    == tbt.compress_with_options(data, opts(mode, 1 << 20))
+    for mode in ("SHUFFLE", "BITSHUFFLE")}
+for name, frame in frames.items():
+    with open(os.path.join(out_dir, name.replace(" ", "_") + ".bl2"), "wb") as f:
+        f.write(frame)
+print(json.dumps({"runs": runs, "equal_host": equal_host, "names": list(frames)}))
+"""
+
+# each native-less call, and the one filter kernel it must launch once
+# (None: the host route, which filters with the plain versions)
+NATIVE_LESS_LAUNCH = {
+    "compress SHUFFLE": None, "decompress SHUFFLE": None,
+    "compress_array SHUFFLE": "shuffle_blocks",
+    "decompress_array(device) SHUFFLE": "unshuffle_blocks",
+    "compress BITSHUFFLE": None, "decompress BITSHUFFLE": None,
+    "compress_array BITSHUFFLE": "bit_shuffle_blocks",
+    "decompress_array(device) BITSHUFFLE": "bit_unshuffle_blocks",
+}
+FILTER_KERNELS = ("shuffle_blocks", "unshuffle_blocks", "bit_shuffle_blocks",
+                  "bit_unshuffle_blocks")
+
+
+def phase_native_less(tbt, workdir: str) -> list:
+    """The route without a native build, in a subprocess with
+    TPU_BLOSC_NO_NATIVE=1: compress of a host float32 ramp of
+    NATIVE_LESS_MIB MiB (LZ4 5, byte and bit shuffle, ts 4) and its
+    decompress, which filter on the host and launch no filter kernel,
+    then compress_array and decompress_array(strategy="device") of the
+    same data as a CUDA tensor, each of which launches its filter kernel
+    exactly once.  Every frame decodes here, on the native route, and
+    compress_array's equals the host route's frame of the same data.
+    Returns each call's launches."""
+    out_dir = os.path.join(workdir, "native_less")
+    os.makedirs(out_dir)
+    env = dict(os.environ, TPU_BLOSC_NO_NATIVE="1")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = run_child(NATIVE_LESS_CHILD, [out_dir, NATIVE_LESS_MIB], "native-less", here, env)
+    wall = time.perf_counter() - t0
+    data = np.arange(NATIVE_LESS_MIB << 18, dtype=np.float32).tobytes()
+    for name in res["names"]:
+        with open(os.path.join(out_dir, name.replace(" ", "_") + ".bl2"), "rb") as f:
+            check(tbt.decompress(f.read()) == data, f"native-less {name}: decodes natively")
+    for name, same in res["equal_host"].items():
+        check(same, f"native-less {name}: the host route's frame")
+    for name, kernel in NATIVE_LESS_LAUNCH.items():
+        launched = {k: v for k, v in res["runs"][name]["launches"].items()
+                    if v and k in FILTER_KERNELS}
+        check(launched == ({kernel: 1} if kernel else {}),
+              f"native-less {name}: filter launches {launched}, expected {kernel or 'none'}")
+    print(f"native-less (TPU_BLOSC_NO_NATIVE=1, pure-Python LZ4 5, ts 4) on a "
+          f"{NATIVE_LESS_MIB} MiB float32 ramp; {card_and_host()}: " + "; ".join(
+              f"{name} {run['s']:.3f} s = {len(data) / run['s'] / 1e6:.2f} MB/s, "
+              + (f"one {LAUNCH_NAMES[NATIVE_LESS_LAUNCH[name]]}" if NATIVE_LESS_LAUNCH[name]
+                 else "plain host filter")
+              for name, run in res["runs"].items()))
+    print(f"native-less: every frame decodes on the native route, compress_array's equal "
+          f"the host route's; phase {wall:.1f} s with the child's start and kernel build")
+    return [run["launches"] for run in res["runs"].values()]
+
+
+FAST_CALLS = 10_000
+
+# argv[1] calls of compress() on the 100 KB i % 256 ramp; the binding is
+# the one the environment picks (TPU_BLOSC_NO_FAST=1: ctypes).
+FAST_CHILD = r"""
+import json, sys, time
+import numpy as np
+import tpu_blosc_torch as tbt
+from tpu_blosc_torch.native import backend
+data = (np.arange(100 * 1024) % 256).astype(np.uint8).tobytes()
+n = int(sys.argv[1])
+frame = tbt.compress(data, tbt.LZ4, 5, tbt.SHUFFLE, 4)
+assert tbt.decompress(frame) == data
+t0 = time.perf_counter()
+for _ in range(n):
+    tbt.compress(data, tbt.LZ4, 5, tbt.SHUFFLE, 4)
+us = (time.perf_counter() - t0) / n * 1e6
+print(json.dumps({"status": backend.fastcall_status(), "us": us, "frame": frame.hex()}))
+"""
+
+
+def check_fastcall_status(status: str, what: str) -> None:
+    """Where Python's headers are present the fastcall module must load;
+    where they are missing the backend says so."""
+    import sysconfig
+
+    headers = os.path.exists(os.path.join(sysconfig.get_paths()["include"], "Python.h"))
+    want = "fastcall: loaded" if headers else "fastcall: unavailable (no Python.h)"
+    check(status == want, f"{what}: {status}, expected {want}")
+
+
+def phase_fastcall(tbt) -> None:
+    """compress() of the 100 KB i % 256 ramp (LZ4 5, shuffle, ts 4;
+    BASELINE.json config 1), FAST_CALLS calls in a subprocess with the
+    fastcall module and FAST_CALLS in one with TPU_BLOSC_NO_FAST=1; the
+    frames must be equal, and this process's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    fast = run_child(FAST_CHILD, [FAST_CALLS], "fastcall", here)
+    slow = run_child(FAST_CHILD, [FAST_CALLS], "fastcall, TPU_BLOSC_NO_FAST=1", here,
+                     dict(os.environ, TPU_BLOSC_NO_FAST="1"))
+    check_fastcall_status(fast["status"], "fastcall")
+    check(slow["status"] == "fastcall: off (TPU_BLOSC_NO_FAST)", f"no-fast: {slow['status']}")
+    data = (np.arange(100 * 1024) % 256).astype(np.uint8).tobytes()
+    check(fast["frame"] == slow["frame"] == tbt.compress(data, tbt.LZ4, 5, tbt.SHUFFLE, 4).hex(),
+          "fastcall: the frames of both bindings are equal")
+    print(f"fastcall: compress() of the 100 KB i % 256 ramp, LZ4 5, shuffle, ts 4, "
+          f"{FAST_CALLS} calls a binding: {fast['status']} {fast['us']:.3f} us a call, "
+          f"ctypes (TPU_BLOSC_NO_FAST=1) {slow['us']:.3f} us a call; frames equal "
+          f"({card_and_host()})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; it runs only on a GPU",
@@ -2758,6 +3039,14 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir)
 
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    try:
+        launches_standalone = phase_standalone(tbt, workdir)
+        launches_native_less = phase_native_less(tbt, workdir)
+    finally:
+        shutil.rmtree(workdir)
+    phase_fastcall(tbt)
+
     print("device busy share by trace (kernels, copies and memsets over the window, from "
           f"complete traces only; card {gpu_line()}): " + ", ".join(
               f"{k} {100 * tr['busy_share']:.2f}% of {tr['window_ms']:.3f} ms"
@@ -2768,10 +3057,11 @@ def main() -> int:
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
     # the kernels' launches in the main paths A, B, D, E, C, G, H (the two
-    # decodes, and the checkpoint load), F, I and J (each rank's two parts)
+    # decodes, and the checkpoint load), F, I, J (each rank's two parts),
+    # the standalone copy's A and each native-less call
     main_runs = [counts for _, _, counts in results] + [
         launches_c, launches_g, launches_h, launches_h_load, launches_f, launches_i,
-        *launches_j]
+        *launches_j, launches_standalone, *launches_native_less]
 
     def shuffle_entry(kernel: str, key: str, replaces: str) -> dict:
         """The JSON entry of one shuffle kernel; ``key`` names its times."""

@@ -19,6 +19,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 import tpu_blosc as jb
 import tpu_blosc_torch as tb

@@ -27,6 +27,7 @@ import torch.distributed as dist
 
 import torch_ckpt_worker as ckpt_worker
 import torch_dist_worker as worker
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 from tpu_blosc import checkpoint as jc
 from tpu_blosc_torch import checkpoint as tc
 from tpu_blosc_torch.errors import BloscError, InvalidDataError

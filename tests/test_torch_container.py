@@ -12,6 +12,7 @@ import struct
 
 import numpy as np
 import pytest
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 import tpu_blosc as jb
 import tpu_blosc_torch as tb

@@ -9,6 +9,9 @@ come from numpy with fixed seeds; every comparison is exact.
 
 from __future__ import annotations
 
+import ast
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -17,6 +20,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 import tpu_blosc as jb
 import tpu_blosc_torch as tb
@@ -368,7 +372,17 @@ def test_bitshuffle_small_input_takes_host_route():
     assert tb.compress_array(_tensor(data), to) == jb.compress_array(jnp.asarray(data), jo)
 
 
+def _names_a_jax_package_path(value: str) -> bool:
+    """Whether a string names ``tpu_blosc`` (not ``tpu_blosc_torch``) as a
+    path or a path component."""
+    return re.search(r"(^|[/\\])tpu_blosc($|[/\\])", value) is not None
+
+
 def test_port_imports_no_jax():
+    """The port imports nothing of JAX or of tpu_blosc, and no module of it
+    names a path under tpu_blosc/ as a file to open: no string of its code
+    (docstrings aside, which cite their counterparts) is such a path or
+    such a path component."""
     code = (
         "import sys, tpu_blosc_torch, tpu_blosc_torch.stats, tpu_blosc_torch.codecs.standard\n"
         "import tpu_blosc_torch.__main__\n"
@@ -377,6 +391,21 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    root = pathlib.Path(tb.__file__).parent
+    named = []
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                      if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                           ast.AsyncFunctionDef))
+                      and node.body and isinstance(node.body[0], ast.Expr)}
+        named += [f"{path.relative_to(root)}:{node.lineno}: {node.value!r}"
+                  for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and id(node) not in docstrings and _names_a_jax_package_path(node.value)]
+    assert not named, named
+    assert _names_a_jax_package_path("tpu_blosc/native/tpublosc.cpp")
+    assert not _names_a_jax_package_path("tpu_blosc_torch/native/tpublosc.cpp")
 
 
 def test_decompress_array_without_cuda_refuses_the_default_device():

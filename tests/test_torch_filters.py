@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 from tpu_blosc.filters import pallas_kernels as pk
 from tpu_blosc.filters import reference as jax_ref

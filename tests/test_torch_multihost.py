@@ -19,6 +19,7 @@ import pytest
 import torch.distributed as dist
 
 import torch_dist_worker as worker
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 import tpu_blosc as jb
 import tpu_blosc_torch as tb
 from tpu_blosc.dist import multihost as jmh

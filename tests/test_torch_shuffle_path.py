@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 from tpu_blosc.filters import batched as jax_batched
 from tpu_blosc.filters import pallas_kernels as pk

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 import tpu_blosc as jb
 import tpu_blosc_torch as tb

@@ -2,8 +2,11 @@
 
 The port of the JAX package ``tpu_blosc`` to PyTorch and an NVIDIA Hopper
 GPU.  It imports torch, numpy and ctypes and never jax or tpu_blosc, and
-its frames are byte-identical to tpu_blosc's: both run one native host
-codec, compiled from ``tpu_blosc/native/tpublosc.cpp``.
+its frames are byte-identical to tpu_blosc's: it compiles its own copy of
+tpu_blosc's native host codec (``native/tpublosc.cpp``) and of its
+fastcall module (``native/fastmod.c``).  With ``TPU_BLOSC_NO_NATIVE=1`` it
+runs without a native build, as tpu_blosc does: the codecs in pure
+Python, host buffers of 256 KiB or more filtered on the card.
 
     import torch, tpu_blosc_torch as tbt
     x = torch.arange(1 << 24, dtype=torch.float32, device="cuda")

@@ -2,7 +2,8 @@
 
 Counterpart: ``tpu_blosc/api.py``: ``AUTO_BLOCK_THRESHOLD`` (:62),
 ``compress`` and ``compress_batch`` (:117-139, :260-283; without the
-fast-lane cache of the former), ``compress_with_options`` ->
+fast-lane cache of the former, :95-114, which gained no more than the
+run-to-run spread on the card's host), ``compress_with_options`` ->
 ``_compress_frame_sized`` -> the single-block native path (:175-223), the
 batch calls ``compress_batch_with_options``,
 ``decompress_batch`` and ``decompress_batch_into`` (:308-409),
@@ -15,10 +16,13 @@ batch calls ``compress_batch_with_options``,
 The frames are byte-identical to the JAX package's: both run the same
 native codec, and a codec registered with ``register_codec`` (a new ID, or
 one in place of a builtin) is called block by block as there
-(chunk.py).  When the memcpy fallback stores raw bytes in a single-block
-frame, the shuffle flags are cleared (the JAX package's documented
-divergence from the reference, tpu_blosc/api.py:8-13).  Inputs past the
-uint32 frame go into a TPB2 container (container.py), as there.
+(chunk.py).  On the route without a native build
+(``TPU_BLOSC_NO_NATIVE=1``) every codec takes that route, the builtin
+ones in pure Python, as in the JAX package without its library.  When
+the memcpy fallback stores raw bytes in a single-block frame, the shuffle
+flags are cleared (the JAX package's documented divergence from the
+reference, tpu_blosc/api.py:8-13).  Inputs past the uint32 frame go into
+a TPB2 container (container.py), as there.
 """
 
 from __future__ import annotations
@@ -200,7 +204,8 @@ def decompress_batch(items, type_size: int = 0) -> list[bytes]:
     single-block frames in one native call, every other item (and every
     error) through the scalar path (≙ tpu_blosc/api.py:343-363)."""
     raws = [_coerce_bytes(x) for x in items]
-    out = _nb.decompress_frames(raws, type_size, _decode_native_map())
+    out = (_nb.decompress_frames(raws, type_size, _decode_native_map())
+           if _nb.available() else [None] * len(raws))
     return [r if r is not None else decompress_with_size(raw, type_size)
             for r, raw in zip(out, raws)]
 
@@ -223,7 +228,8 @@ def decompress_batch_into(items, outs) -> list[int]:
     if len(raws) != len(outs):
         raise ValueError(f"outs length {len(outs)} must match items length {len(raws)}")
     views = [_writable_view_or_none(o) for o in outs]
-    res = _nb.decompress_frames_into(raws, views, _decode_native_map())
+    res = (_nb.decompress_frames_into(raws, views, _decode_native_map())
+           if _nb.available() else [None] * len(raws))
     return [r if r is not None else decompress_into(raw, o)
             for r, raw, o in zip(res, raws, outs)]
 
@@ -280,12 +286,7 @@ def decompress_with_size(data, type_size: int) -> bytes:
             header.codec, Codec(header.codec) if header.codec < 6 else header.codec)
         decompressed = codec.decompress(decompressed, header.nbytes_orig)
     # the reference unshuffles even memcpy frames (blosc.go:398-426)
-    if header.has_bitshuffle and ts > 1:
-        decompressed = _nb.bitunshuffle(decompressed, ts).tobytes()
-    elif header.has_shuffle and ts > 1:
-        decompressed = _nb.unshuffle(decompressed, ts).tobytes()
-    else:
-        decompressed = bytes(decompressed)
+    decompressed = _chunk.unfilter_block(decompressed, ts, header.shuffle_mode)
     if len(decompressed) != header.nbytes_orig:
         raise SizeMismatchError(
             f"blosc: decompressed size mismatch: got {len(decompressed)}, "

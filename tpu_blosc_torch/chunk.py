@@ -18,7 +18,11 @@ Codec IDs whose registry entry is the builtin codec run the native
 pipeline; any other registered codec (a new ID, or one registered in
 place of a builtin) is called on each block, with the memcpy fallback,
 as in the JAX package (codecs/registry.py).  An ID with no codec raises
-InvalidCodecError.
+InvalidCodecError.  On the route without a native build
+(``TPU_BLOSC_NO_NATIVE=1``) every ID takes that per-block route, the
+builtin codecs in pure Python, as ``tpu_blosc/chunk.py:88-89`` does when
+its library is missing; the host filters of its blocks then run the
+plain versions (``filters/reference.py``).
 """
 
 from __future__ import annotations
@@ -64,8 +68,9 @@ _resolve_cache: dict = {}
 
 def native_pipeline_codec(codec: int, level: int) -> tuple[int, int] | None:
     """Frame codec ID -> (native pipeline codec, level or depth), or None
-    when the registry entry of the ID is not its builtin codec: an ID the
-    native library lacks, or one a register_codec call took over.
+    when the registry entry of the ID is not its builtin codec (an ID the
+    native library lacks, or one a register_codec call took over) or the
+    native library is off.
 
     LZ4 ignores the level, LZ4HC maps it to a chain depth, ZLIB passes it
     through and ZSTD maps it to the zstd levels 1/3/9/19.  Memoized on the
@@ -83,7 +88,7 @@ def native_pipeline_codec(codec: int, level: int) -> tuple[int, int] | None:
 
 
 def _native_pipeline_codec(codec: int, level: int) -> tuple[int, int] | None:
-    if not is_builtin(codec):
+    if not _native.available() or not is_builtin(codec):
         return None
     if codec == Codec.BLOSCLZ:
         return _native.NATIVE_BLOSCLZ, 1

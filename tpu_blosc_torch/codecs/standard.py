@@ -10,13 +10,15 @@ objects, names and level mapping:
   Snappy — no levels
 
 Each object but ZLIB's and ZSTD's calls the native library
-(``native/backend.py``), which the port cannot run without: the JAX
-package's pure-Python fallbacks for a missing build (``lz4_ref``,
-``snappy_ref``, ``blosclz_ref``) have nothing to fall back from here.
-ZLIB runs CPython's ``zlib``; ZSTD runs ``zstandard``, and is registered
-only where that module imports.  With it missing, ``is_builtin(ZSTD)``
-still holds (no entry is the builtin entry), so the native ZSTD pipeline
-keeps working, as in the JAX package.
+(``native/backend.py``), or, on the route without a native build
+(``TPU_BLOSC_NO_NATIVE=1``), its pure-Python version (``lz4_ref``,
+``snappy_ref``, ``blosclz_ref``), chosen on each call as in
+``tpu_blosc/codecs/standard.py:32-105``.  ZLIB runs CPython's ``zlib``;
+ZSTD runs ``zstandard``, and is registered only where that module
+imports.  With it missing, ``is_builtin(ZSTD)`` still holds (no entry is
+the builtin entry), so the native ZSTD pipeline keeps working, as in the
+JAX package; on the route without a native build ZSTD then has no codec
+and raises InvalidCodecError, as there.
 """
 
 from __future__ import annotations
@@ -28,19 +30,9 @@ import zlib as _zlib
 from ..errors import CompressionFailedError, DecompressionFailedError
 from ..format import Codec
 from ..native import backend as _native
+from . import blosclz_ref, lz4_ref, snappy_ref
+from .lz4_ref import hc_depth_for_level
 from .registry import get_codec, register_codec
-
-
-def hc_depth_for_level(level: int) -> int:
-    """The LZ4HC search depth of Blosc levels 1-9
-    (≙ tpu_blosc/codecs/lz4_ref.py:229-241)."""
-    if level <= 3:
-        return 2
-    if level <= 5:
-        return 16
-    if level <= 7:
-        return 64
-    return 256
 
 
 class BloscLzCodec:
@@ -50,10 +42,14 @@ class BloscLzCodec:
         return "blosclz"
 
     def compress(self, data: bytes, level: int) -> bytes:
-        return _native.blosclz_compress(data)
+        if _native.available():
+            return _native.blosclz_compress(data)
+        return blosclz_ref.compress(data)
 
     def decompress(self, data: bytes, expected_size: int) -> bytes:
-        return _native.blosclz_decompress(data, expected_size)
+        if _native.available():
+            return _native.blosclz_decompress(data, expected_size)
+        return blosclz_ref.decompress(data, expected_size)
 
 
 class Lz4Codec:
@@ -63,10 +59,14 @@ class Lz4Codec:
         return "lz4"
 
     def compress(self, data: bytes, level: int) -> bytes:
-        return _native.lz4_compress(data, depth=1)
+        if _native.available():
+            return _native.lz4_compress(data, depth=1)
+        return lz4_ref.compress_block(data, max_search_depth=1)
 
     def decompress(self, data: bytes, expected_size: int) -> bytes:
-        return _native.lz4_decompress(data, expected_size)
+        if _native.available():
+            return _native.lz4_decompress(data, expected_size)
+        return lz4_ref.decompress_block(data, expected_size)
 
 
 class Lz4HcCodec:
@@ -76,10 +76,15 @@ class Lz4HcCodec:
         return "lz4hc"
 
     def compress(self, data: bytes, level: int) -> bytes:
-        return _native.lz4_compress(data, depth=hc_depth_for_level(level))
+        depth = hc_depth_for_level(level)
+        if _native.available():
+            return _native.lz4_compress(data, depth=depth)
+        return lz4_ref.compress_block(data, max_search_depth=depth)
 
     def decompress(self, data: bytes, expected_size: int) -> bytes:
-        return _native.lz4_decompress(data, expected_size)
+        if _native.available():
+            return _native.lz4_decompress(data, expected_size)
+        return lz4_ref.decompress_block(data, expected_size)
 
 
 class SnappyCodec:
@@ -89,10 +94,14 @@ class SnappyCodec:
         return "snappy"
 
     def compress(self, data: bytes, level: int) -> bytes:
-        return _native.snappy_compress(data)
+        if _native.available():
+            return _native.snappy_compress(data)
+        return snappy_ref.compress(data)
 
     def decompress(self, data: bytes, expected_size: int) -> bytes:
-        return _native.snappy_decompress(data, expected_size)
+        if _native.available():
+            return _native.snappy_decompress(data, expected_size)
+        return snappy_ref.decompress(data, expected_size)
 
 
 class ZlibCodec:

@@ -2,10 +2,15 @@
 
 Counterpart: ``tpu_blosc/filters/__init__.py:35-176``.  The JAX package
 probes its platform once at import and falls back from device to native
-to NumPy.  The port needs no probe: a host buffer (bytes or ndarray) goes
-through the native C++ shuffle, and a block tensor through
-``batched.shuffle_blocks`` or ``batched.bit_shuffle_blocks``, whose route
-follows the tensor's device.
+to NumPy.  The port needs no probe and has no fallback.  A block tensor
+goes through ``batched.shuffle_blocks`` or ``batched.bit_shuffle_blocks``,
+whose route follows the tensor's device.  A host buffer (bytes or
+ndarray) goes through the native C++ shuffle, and on the route without
+a native build (``TPU_BLOSC_NO_NATIVE=1``) through the plain versions of
+``reference.py``.  That route is for a machine where nothing can be
+built, so it sends no host buffer to the card, whose kernels need
+``nvcc``: unlike ``_device_shuffle`` (tpu_blosc/filters/__init__.py:97-168),
+which needs no toolchain on a TPU.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from ..format import Shuffle
 from ..native import backend as _native
+from . import reference
 from .batched import (
     bit_shuffle_blocks,
     bit_unshuffle_blocks,
@@ -45,31 +51,50 @@ __all__ = [
 
 def backend_name() -> str:
     """'cuda' when a CUDA device is present (block tensors there run the
-    CUDA kernels), else 'torch-cpu'."""
-    return "cuda" if torch.cuda.is_available() else "torch-cpu"
+    CUDA kernels), else 'torch-cpu'; prefixed 'python+' on the route
+    without a native build, where the codecs run in pure Python."""
+    device = "cuda" if torch.cuda.is_available() else "torch-cpu"
+    return device if _native.available() else f"python+{device}"
+
+
+# each host filter: (native function, plain function)
+_HOST = {
+    "shuffle": ("shuffle", reference.shuffle_bytes),
+    "unshuffle": ("unshuffle", reference.unshuffle_bytes),
+    "bit_shuffle": ("bitshuffle", reference.bit_shuffle),
+    "bit_unshuffle": ("bitunshuffle", reference.bit_unshuffle),
+}
+
+
+def _host_filter(src, type_size: int, kind: str) -> np.ndarray:
+    native_fn, plain = _HOST[kind]
+    if _native.available():
+        return getattr(_native, native_fn)(src, type_size)
+    a = _native.as_u8(src)
+    return plain(torch.from_numpy(a if a.flags.writeable else a.copy()), type_size).numpy()
 
 
 def shuffle_bytes(src, type_size: int) -> np.ndarray:
     """Whole-buffer byte shuffle on the host (native); the bytes past the
     last whole element are copied verbatim."""
-    return _native.shuffle(src, type_size)
+    return _host_filter(src, type_size, "shuffle")
 
 
 def unshuffle_bytes(src, type_size: int) -> np.ndarray:
     """Inverse of shuffle_bytes."""
-    return _native.unshuffle(src, type_size)
+    return _host_filter(src, type_size, "unshuffle")
 
 
 def bit_shuffle(src, type_size: int) -> np.ndarray:
     """Whole-buffer bit shuffle on the host (native), in the reference's
     local groups of 8 elements; bytes past the last whole group are
     copied verbatim."""
-    return _native.bitshuffle(src, type_size)
+    return _host_filter(src, type_size, "bit_shuffle")
 
 
 def bit_unshuffle(src, type_size: int) -> np.ndarray:
     """Inverse of bit_shuffle."""
-    return _native.bitunshuffle(src, type_size)
+    return _host_filter(src, type_size, "bit_unshuffle")
 
 
 def filter_bytes(src, type_size: int, mode: int) -> np.ndarray:

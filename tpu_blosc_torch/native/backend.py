@@ -1,24 +1,41 @@
-"""ctypes binding of the native C++ host codec.
+"""ctypes binding of the native C++ host codec, and its fastcall module.
 
-Counterpart: ``tpu_blosc/native/backend.py``, the subset the port's slice
-uses.  The library is compiled from the JAX package's own source,
-``tpu_blosc/native/tpublosc.cpp``, read in place and never copied, so both
-packages run one codec and write the same bytes.  It is built with g++ at
-first use into ``tpu_blosc_torch/_build/`` with the flag ladder of
+Counterpart: ``tpu_blosc/native/backend.py``.  The library is compiled
+from the port's own copy of the JAX package's source, ``tpublosc.cpp``
+beside this file (byte-identical to ``tpu_blosc/native/tpublosc.cpp``, a
+test holds the two together), so both packages run one codec and write
+the same bytes.  It is built with g++ at first use into
+``tpu_blosc_torch/_build/`` with the flag ladder of
 ``tpu_blosc/native/backend.py:65-81``.  ``include/zstd.h`` declares the
 zstd functions the source calls, and the library links the runtime
-``libzstd.so.1``, so a host without zstd's development files builds it too.
+``libzstd.so.1``, so a host without zstd's development files builds it
+too.  A failed build raises: there is no silent fallback.
 
-Unlike the JAX package there is no pure-Python fallback: a failed build
-raises.  Every pointer crosses as ``ctypes.c_void_p`` (a plain int would
-be cut to 32 bits).
+``fastmod.c`` (a copy of ``tpu_blosc/native/fastmod.c``) is built beside
+the library and loaded as ``tpu_blosc_torch.native._tpbfast``: METH_FASTCALL
+entry points to the single-block frame calls and the batch calls, which
+skip the ctypes marshalling (≙ tpu_blosc/native/backend.py:182-222).
+``fastcall_status()`` says whether it serves.  Where Python's headers are
+missing the ctypes route serves and nothing is built.
+
+Environment (read at import):
+
+- ``TPU_BLOSC_NO_NATIVE``: the route without a native build.  Nothing is
+  built or loaded, ``available()`` is False, and the codecs run their
+  pure-Python versions (``codecs/*_ref.py``); ``lib()`` raises.
+- ``TPU_BLOSC_NO_FAST``: the ctypes route, without the fastcall module.
+
+Every pointer crosses as ``ctypes.c_void_p`` (a plain int would be cut
+to 32 bits).
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import os
 import struct
+import sysconfig
 import threading
 
 import numpy as np
@@ -27,11 +44,13 @@ from .. import buildlib
 from ..errors import DecompressionFailedError, SizeMismatchError
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(_HERE)), "tpu_blosc", "native", "tpublosc.cpp"
-)
+SOURCE = os.path.join(_HERE, "tpublosc.cpp")
+FAST_SOURCE = os.path.join(_HERE, "fastmod.c")
 _INCLUDE = os.path.join(_HERE, "include")
+NO_NATIVE = bool(os.environ.get("TPU_BLOSC_NO_NATIVE"))
+NO_FAST = bool(os.environ.get("TPU_BLOSC_NO_FAST"))
 LIB_PATH = os.path.join(buildlib.BUILD_DIR, "libtpublosc.so")
+FAST_PATH = os.path.join(buildlib.BUILD_DIR, "_tpbfast.so")
 
 _BASE = ["-O3", "-funroll-loops", "-shared", "-fPIC", "-std=c++17"]
 _LADDER = (["-march=native", "-fopenmp"], ["-fopenmp"], ["-march=native"], [])
@@ -108,9 +127,17 @@ _SIGNATURES = {
 }
 
 _lib = None
+_fast = None  # the fastcall module, once lib() loaded it (None: ctypes route)
+_fast_status = "fastcall: not loaded yet"
 _load_lock = threading.Lock()
 # seconds the first load of this process spent compiling (0.0: up to date)
 build_seconds: float | None = None
+fast_build_seconds: float | None = None
+
+
+def available() -> bool:
+    """False on the route without a native build (TPU_BLOSC_NO_NATIVE)."""
+    return not NO_NATIVE
 
 
 def _commands() -> list[list[str]]:
@@ -122,11 +149,15 @@ def _commands() -> list[list[str]]:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded library, built first if the source changed."""
-    global _lib, build_seconds
+    """The loaded library, built first if the source changed, with the
+    fastcall module loaded beside it."""
+    global _lib, _fast, build_seconds
     if _lib is None:
         with _load_lock:
             if _lib is None:
+                if NO_NATIVE:
+                    raise RuntimeError(
+                        "the native host codec is off (TPU_BLOSC_NO_NATIVE is set)")
                 build_seconds = buildlib.ensure_built(
                     LIB_PATH, [SOURCE, os.path.join(_INCLUDE, "zstd.h")],
                     _commands(),
@@ -136,8 +167,52 @@ def lib() -> ctypes.CDLL:
                     fn = getattr(handle, name)
                     fn.restype = restype
                     fn.argtypes = argtypes
+                _fast = _load_fast()
                 _lib = handle
     return _lib
+
+
+def _load_fast():
+    """Build (at first use) and import the fastcall module, or None where
+    it is switched off or Python's headers are missing.  A failed build
+    or import raises."""
+    global _fast_status, fast_build_seconds
+    if NO_FAST:
+        _fast_status = "fastcall: off (TPU_BLOSC_NO_FAST)"
+        return None
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        _fast_status = "fastcall: unavailable (no Python.h)"
+        return None
+    fast_build_seconds = buildlib.ensure_built(FAST_PATH, [FAST_SOURCE, LIB_PATH], [[
+        "gcc", "-O2", "-shared", "-fPIC", "-I", include, FAST_SOURCE,
+        "-o", buildlib.OUT, "-L", buildlib.BUILD_DIR, "-ltpublosc",
+        "-Wl,-rpath,$ORIGIN",
+    ]])
+    spec = importlib.util.spec_from_file_location(
+        "tpu_blosc_torch.native._tpbfast", FAST_PATH)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _fast_status = "fastcall: loaded"
+    return mod
+
+
+def fastmod():
+    """The fastcall module, or None where the ctypes route serves."""
+    if _lib is None:
+        lib()
+    return _fast
+
+
+def fastcall_status() -> str:
+    """Which binding serves the frame calls: "fastcall: loaded", "fastcall:
+    off (TPU_BLOSC_NO_FAST)", or "fastcall: unavailable
+    (no Python.h)"; "fastcall: off (no native build)" on the route without
+    one."""
+    if NO_NATIVE:
+        return "fastcall: off (no native build)"
+    fastmod()
+    return _fast_status
 
 
 # Uninitialised bytes via the CPython C API: the codec writes straight into
@@ -382,7 +457,12 @@ def _universal_bound(n: int) -> int:
 def compress_frame(data, type_size: int, shuffle_mode: int, header_codec: int,
                    native_codec: int, depth: int) -> bytes:
     """One C call making a whole single-block frame, header included
-    (≙ tpu_blosc/native/backend.py:612-644)."""
+    (≙ tpu_blosc/native/backend.py:612-644); through the fastcall module
+    where it serves."""
+    fast = fastmod()
+    if fast is not None:
+        return fast.compress_frame(data, type_size, shuffle_mode, header_codec,
+                                   native_codec, depth)
     a = as_u8(data)
     dst = np.empty(_universal_bound(a.size), dtype=np.uint8)
     total = lib().tpb_compress_frame(
@@ -401,6 +481,10 @@ def compress_frames(items, type_size: int, shuffle_mode: int,
     compress_frame writes (≙ tpu_blosc/native/backend.py:647-671, whose
     fastcall module calls the same tpb_compress_batch).  Items must be
     non-empty."""
+    fast = fastmod()
+    if fast is not None:
+        return fast.compress_batch(items, type_size, shuffle_mode, header_codec,
+                                   native_codec, depth)
     srcs = [as_u8(d) for d in items]  # referenced until the call returns
     nf = len(srcs)
     if nf == 0:
@@ -468,6 +552,9 @@ def decompress_frames(items: list, type_size: int, native_map: bytes) -> list:
     every typed error (≙ tpu_blosc/native/backend.py:674-685).
     ``native_map[codec_id]`` is the native codec of a header codec id,
     0xFF for none."""
+    fast = fastmod()
+    if fast is not None:
+        return fast.decompress_batch(items, type_size, native_map)
     out: list = [None] * len(items)
     picked = [(i, p) for i, p in ((i, _batch_frame(f, native_map, type_size))
                                   for i, f in enumerate(items)) if p is not None]
@@ -491,6 +578,9 @@ def decompress_frames_into(items: list, outs: list, native_map: bytes) -> list:
     writable flat u8 array or None; entries are byte counts, or None where
     the item punts to the scalar path, as in decompress_frames, or its
     buffer is missing or too small (≙ tpu_blosc/native/backend.py:688-697)."""
+    fast = fastmod()
+    if fast is not None:
+        return fast.decompress_batch_into(items, outs, 0, native_map)
     res: list = [None] * len(items)
     picked = []
     for i, (frame, view) in enumerate(zip(items, outs)):
@@ -513,14 +603,21 @@ def decompress_frame(data: bytes, payload_off: int, payload_size: int,
                      native_codec: int) -> bytes:
     """One C call decoding and unfiltering a single-block frame body
     (≙ tpu_blosc/native/backend.py:700-742)."""
-    a = as_u8(data)
-    out, addr = alloc_bytes(nbytes_orig)
-    got = lib().tpb_decompress_block_into(
-        _addr(a), payload_off, payload_size, addr, nbytes_orig,
-        type_size, shuffle_mode, native_codec,
-    )
-    if got == nbytes_orig:
-        return out
+    fast = fastmod()
+    if fast is not None:
+        got = fast.decompress_frame(data, payload_off, payload_size, nbytes_orig,
+                                    type_size, shuffle_mode, native_codec)
+        if isinstance(got, bytes):
+            return got
+    else:
+        a = as_u8(data)
+        out, addr = alloc_bytes(nbytes_orig)
+        got = lib().tpb_decompress_block_into(
+            _addr(a), payload_off, payload_size, addr, nbytes_orig,
+            type_size, shuffle_mode, native_codec,
+        )
+        if got == nbytes_orig:
+            return out
     if got < 0:
         raise DecompressionFailedError(
             f"blosc: decompression failed: malformed payload (code {got})"
