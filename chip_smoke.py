@@ -111,15 +111,31 @@ the sources in the checkout into tpu_blosc_torch/_build/, then:
     A's ramp plus a 123-byte tail (byte shuffle) and of D's linspace (bit
     shuffle), and compress_chunked_multihost / decompress_chunked_multihost
     of the same bytes; the calls and, one by one, the stages are timed;
-    then stats.trace of compress_chunked_mesh with statistics, and of 20
-    launches each of the shuffle and the run-count kernel back to back on
-    its (64, 1 MiB) rows;
+    then a DTensor round trip of A's ramp over a CUDA mesh of that rank
+    (compress_array gathers it over NCCL: A's frame, one shuffle launch;
+    decompress_array(strategy="device", sharding=): the ramp back on the
+    card, one unshuffle launch); then stats.trace of compress_chunked_mesh
+    with statistics, and of 20 launches each of the shuffle and the
+    run-count kernel back to back on its (64, 1 MiB) rows;
 13. main path J: the script starts itself twice (--rank r --world 2), two
     ranks over Gloo that share the card: (a) compress_chunked_mesh and
     decompress_chunked_mesh of I's first stream; (b) save_pytree_sharded
     of F's state cut to its first four layers (full width; every 2-D
     weight a DTensor Shard(0) over the ranks with CUDA local shards, the
-    rest plain tensors), and the same from CPU local shards; then this
+    rest plain tensors), and the same from CPU local shards; (c) the
+    single-frame entry points on DTensors Shard(0) with CUDA local shards:
+    A's ramp, D's linspace and A's ramp in bfloat16 with 61 elements more
+    (an uneven split), each through the gather alone (the full tensor on
+    the card), compress_array (the host frame of the
+    full bytes on both ranks), decompress_array(strategy="device",
+    sharding=), pack_array / unpack_array(sharding=), save_array (process
+    0 writes) / load_array(sharding=) and iter_arrays(sharding=); then
+    save_pytree of (b)'s DTensor tree (process 0's file is the one
+    save_pytree writes from the plain state; load_pytree gives it back);
+    each call's wall ms, and its launches counted from 0: one shuffle (or
+    bit-shuffle) launch a compress_array, pack_array and process 0's
+    save_array, one unshuffle (or bit-unshuffle) launch a device decode,
+    none in the transfer decodes; then this
     process loads the set with load_pytree_sharded and load_leaf_sharded;
     beside the ranks, one ``python -m tpu_blosc_torch info`` of A's frame
     in a subprocess;
@@ -177,9 +193,10 @@ kernel of the match strategy on theirs, D and E the bit-shuffle pair, F
 the shuffle pair, G the shuffle kernel, the run-count and the run-record
 kernel, H the fill and the unshuffle kernel, I the shuffle pair, the
 bit-shuffle pair and the run-count kernel, each of J's ranks the shuffle
-pair and the run-count kernel in (a) and the shuffle kernel once for each
-of its CUDA records over 4 MiB in (b)): the launch counts are reset just before each
-path and read just after.  Any failure raises, so the script exits
+pair and the run-count kernel in (a), the shuffle kernel once for each
+of its CUDA records over 4 MiB in (b), and in (c) the counts above):
+the launch counts are reset just before each path (in I's DTensor round
+trip and J (c), each call) and read just after.  Any failure raises, so the script exits
 non-zero without the ok line.  It imports nothing of JAX and exits
 non-zero when no CUDA device is present.
 """
@@ -2403,6 +2420,33 @@ def check_and_time_path_i(tbt, inputs, results, launches: dict) -> dict:
             "host_frame": host_frames[0]}
 
 
+def path_i_dtensor(tbt, x_a, opts_a, frame_a) -> dict:
+    """Path I's DTensor round trip, in I's group (one rank over NCCL): A's
+    ramp as a DTensor Shard(0) over a CUDA mesh of that rank;
+    compress_array gathers it over NCCL and gives A's frame,
+    decompress_array(strategy="device", sharding=) gives it back."""
+    from torch.distributed.tensor import Shard, init_device_mesh
+
+    from tpu_blosc_torch.dist import _group
+
+    mesh = init_device_mesh(DEVICE, (1,))
+    check(_group.comm_device(mesh.get_group(0)).type == "cuda",
+          "I: the DTensor's gather runs over NCCL on the card")
+    x = shard_rows(x_a, mesh, 0, 1, DEVICE)
+    run = LaunchCounter("I DTensor")
+    frame = run.call("compress_array", lambda: tbt.compress_array(x, opts_a),
+                     {"shuffle_blocks": 1})
+    check(frame == frame_a, "I: compress_array of the DTensor gives A's frame")
+    y = run.call("decompress_array(device)", lambda: tbt.decompress_array(
+        frame, x_a.dtype, sharding=(mesh, [Shard(0)]), strategy="device"),
+        {"unshuffle_blocks": 1})
+    check_local("I DTensor decompress_array", y, x_a, 0, 1)
+    print(f"I DTensor round trip of A over NCCL, wall ms (synchronised; card {gpu_line()}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in run.ms.items())
+          + f"; launches {nonzero(run.total)}")
+    return run.total
+
+
 def j_state(seed: int) -> dict:
     """Path J's state: F's, cut to the first J_LAYERS transformer blocks
     (full width; wte, wpe and ln_f stay)."""
@@ -2426,23 +2470,186 @@ def j_device_route_records(state: dict, rank: int, world: int, threshold: int) -
     return count
 
 
+def shard_rows(x: torch.Tensor, mesh, rank: int, world: int, device: str):
+    """``x`` as a DTensor Shard(0) over ``mesh`` whose local shard is this
+    rank's rows (torch.chunk's split: ceil(n / world) a rank, the last
+    short) on ``device``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    rows = -(-x.shape[0] // world)
+    local = x[rank * rows : (rank + 1) * rows].to(device).contiguous()
+    return DTensor.from_local(local, mesh, [Shard(0)], run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def j_sharded_tree(state: dict, mesh, rank: int, world: int, device: str):
     """``state`` with every 2-D weight as a DTensor Shard(0) over ``mesh``
     whose local shard is this rank's rows on ``device``; the other leaves
     plain tensors there."""
-    from torch.distributed.tensor import DTensor, Shard
 
     def place(x):
         if not isinstance(x, torch.Tensor):
             return x
         if x.dim() != 2:
             return x.to(device)
-        rows = -(-x.shape[0] // world)
-        local = x[rank * rows : (rank + 1) * rows].to(device).contiguous()
-        return DTensor.from_local(local, mesh, [Shard(0)], run_check=False, shape=x.shape,
-                                  stride=x.stride())
+        return shard_rows(x, mesh, rank, world, device)
 
     return tree_map(place, state)
+
+
+#: bfloat16 elements past 64 MiB in path J (c)'s uneven split: I's 123-byte
+#: tail in whole elements, an odd count, so the two ranks' rows differ by one
+J_BF16_EXTRA = 61
+FILTER_PAIRS = {False: ("shuffle_blocks", "unshuffle_blocks"),
+                True: ("bit_shuffle_blocks", "bit_unshuffle_blocks")}
+
+
+def j_dtensor_cases(tbt) -> list:
+    """(name, full tensor on the card, options) of path J (c): A's 64 MiB
+    float32 ramp (byte shuffle), D's 64 MiB linspace (bit shuffle), and
+    A's ramp in bfloat16 with J_BF16_EXTRA elements more (byte shuffle)."""
+    byte = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE, type_size=4)
+    bit = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.BITSHUFFLE,
+                      type_size=4)
+    return [
+        ("A f32 ramp", torch.arange(16 * MIB, dtype=torch.float32, device=DEVICE), byte),
+        ("D f32 linspace bitshuffle",
+         torch.linspace(0, 1, 16 * MIB, dtype=torch.float32, device=DEVICE), bit),
+        ("A bf16 ramp, uneven", torch.arange(32 * MIB + J_BF16_EXTRA, dtype=torch.float32,
+                                             device=DEVICE).to(torch.bfloat16), byte),
+    ]
+
+
+class LaunchCounter:
+    """Runs the calls of a path one by one: the launch counts set to 0
+    just before each call and read just after it, held to what the call
+    must launch, added up for the path; the wall ms of each call (ending
+    synchronised)."""
+
+    def __init__(self, name: str):
+        from tpu_blosc_torch.filters import kernels
+
+        self.kernels, self.name = kernels, name
+        self.total = dict.fromkeys(kernels.launches, 0)
+        self.ms: dict = {}
+
+    def call(self, label: str, fn, want: dict):
+        """``fn()``; ``want`` maps each filter kernel it must launch to the
+        count (a byte-shuffle kernel on its vec16 path); the other filter
+        kernels must not launch."""
+        self.kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.ms[label] = (time.perf_counter() - t0) * 1e3
+        got = dict(self.kernels.launches)
+        for k, v in got.items():
+            self.total[k] += v
+        for kernel in (*FILTER_PAIRS[False], *FILTER_PAIRS[True]):
+            n = want.get(kernel, 0)
+            vec16 = got.get(f"{kernel}.vec16", n)
+            check(got[kernel] == n and vec16 == n,
+                  f"{self.name} {label}: {kernel} launched {n} time(s), on its vec16 path "
+                  f"where it has one ({nonzero(got)})")
+        return out
+
+
+def check_local(what: str, y, full: torch.Tensor, rank: int, world: int) -> None:
+    """``y`` is a DTensor Shard(0) of ``full``'s shape whose local tensor,
+    on the card, is this rank's rows of ``full``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    rows = -(-full.shape[0] // world)
+    local = y.to_local() if isinstance(y, DTensor) else None
+    check(local is not None and tuple(y.shape) == tuple(full.shape)
+          and y.placements == (Shard(0),) and local.device.type == "cuda"
+          and local.dtype == full.dtype
+          and torch.equal(local, full[rank * rows : (rank + 1) * rows]),
+          f"{what}: a DTensor Shard(0) whose local tensor on the card is the rank's rows")
+
+
+def j_dtensor_round_trips(tbt, mesh, tree, state, opts_f, rank: int, world: int,
+                          workdir: str) -> LaunchCounter:
+    """Path J (c) on one rank: each of j_dtensor_cases as a DTensor with CUDA
+    local shards through the gather alone (dist._sharded.gather_full: the
+    full tensor on the card), compress_array (the host frame of the full bytes on
+    every rank), decompress_array(strategy="device", sharding=), pack_array
+    and unpack_array(sharding=), save_array (process 0 writes),
+    load_array(sharding=) and iter_arrays(sharding=); then save_pytree of
+    path J's state with its 2-D weights as DTensors (``tree``): process 0's
+    file is the one save_pytree writes from the plain state, and
+    load_pytree gives it back; the other process writes no file."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from tpu_blosc_torch.dist import _sharded
+
+    run = LaunchCounter(f"J (c) rank {rank}")
+    sharding = (mesh, [Shard(0)])
+    for k, (name, full, opts) in enumerate(j_dtensor_cases(tbt)):
+        x = shard_rows(full, mesh, rank, world, DEVICE)
+        fwd, inv = FILTER_PAIRS[opts.shuffle == tbt.Shuffle.BITSHUFFLE]
+        host = tbt.compress_with_options(full.cpu().view(torch.uint8).numpy(),
+                                         replace(opts, type_size=full.element_size()))
+        label = f"{name}: "
+        gathered = run.call(label + "gather_full", lambda: _sharded.gather_full(x), {})
+        check(gathered.device.type == "cuda" and torch.equal(gathered, full),
+              f"J (c) rank {rank} {name}: gather_full gives the full tensor on the card")
+        del gathered
+        frame = run.call(label + "compress_array", lambda: tbt.compress_array(x, opts),
+                         {fwd: 1})
+        check(frame == host, f"J (c) rank {rank} {name}: compress_array gives the host frame")
+        y = run.call(label + "decompress_array(device)", lambda: tbt.decompress_array(
+            frame, full.dtype, sharding=sharding, strategy="device"), {inv: 1})
+        check_local(f"J (c) rank {rank} {name} decompress_array", y, full, rank, world)
+        env = run.call(label + "pack_array", lambda: tbt.pack_array(x, opts), {fwd: 1})
+        check(env.endswith(host), f"J (c) rank {rank} {name}: pack_array holds the host frame")
+        y = run.call(label + "unpack_array", lambda: tbt.unpack_array(env, sharding=sharding),
+                     {})
+        check_local(f"J (c) rank {rank} {name} unpack_array", y, full, rank, world)
+        mine = os.path.join(workdir, f"jc{k}.r{rank}.tpbs")
+        run.call(label + "save_array", lambda: tbt.save_array(mine, x, opts),
+                 {fwd: 1} if rank == 0 else {})
+        check(os.path.exists(mine) == (rank == 0),
+              f"J (c) rank {rank} {name}: save_array writes on process 0 alone")
+        dist.barrier()
+        saved = os.path.join(workdir, f"jc{k}.r0.tpbs")
+        y = run.call(label + "load_array", lambda: tbt.load_array(saved, full.dtype,
+                                                                 sharding=sharding), {})
+        check_local(f"J (c) rank {rank} {name} load_array", y, full, rank, world)
+        with tbt.StreamReader(saved) as r:
+            ys = run.call(label + "iter_arrays", lambda: list(r.iter_arrays(
+                full.dtype, sharding=sharding)), {})
+        check(len(ys) == 1, f"J (c) rank {rank} {name}: iter_arrays gives the one record")
+        check_local(f"J (c) rank {rank} {name} iter_arrays", ys[0], full, rank, world)
+        del x, y, ys
+
+    mine = os.path.join(workdir, f"jc_tree.r{rank}.tpbs")
+    device_records = sum(x.numel() * x.element_size() > tbt.AUTO_BLOCK_THRESHOLD
+                         for x in tree_leaves(state) if isinstance(x, torch.Tensor))
+    run.call("save_pytree", lambda: tbt.save_pytree(mine, tree, opts_f),
+             {"shuffle_blocks": device_records} if rank == 0 else {})
+    check(os.path.exists(mine) == (rank == 0),
+          f"J (c) rank {rank}: save_pytree writes on process 0 alone")
+    if rank == 0:
+        plain = os.path.join(workdir, "jc_tree_plain.tpbs")
+        t0 = time.perf_counter()
+        tbt.save_pytree(plain, state, opts_f)
+        run.ms["save_pytree of the plain state"] = (time.perf_counter() - t0) * 1e3
+        with open(mine, "rb") as a, open(plain, "rb") as b:
+            check(a.read() == b.read(), "J (c): save_pytree of the DTensor tree writes the file "
+                  "of the plain state")
+        t0 = time.perf_counter()
+        loaded = tbt.load_pytree(mine)
+        run.ms["load_pytree"] = (time.perf_counter() - t0) * 1e3
+        for want, got in zip(tree_leaves(state), tree_leaves(loaded)):
+            check(torch.equal(want.cpu(), got) if isinstance(want, torch.Tensor)
+                  else want == got, "J (c): load_pytree gives the state back exactly")
+    dist.barrier()
+    return run
 
 
 def j_mesh_launches(n: int, opts, rank: int, world: int) -> dict:
@@ -2516,7 +2723,8 @@ def worker_main(rank: int, world: int, store_file: str, workdir: str) -> int:
         state = j_state(SEED)
         opts_f = tbt.Options(codec=tbt.Codec.LZ4, level=5, shuffle=tbt.Shuffle.SHUFFLE)
         prefix = os.path.join(workdir, "j_ckpt")
-        tree = j_sharded_tree(state, init_device_mesh(DEVICE, (world,)), rank, world, DEVICE)
+        mesh = init_device_mesh(DEVICE, (world,))
+        tree = j_sharded_tree(state, mesh, rank, world, DEVICE)
         dist.barrier()
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -2538,11 +2746,15 @@ def worker_main(rank: int, world: int, store_file: str, workdir: str) -> int:
         check(same, f"{name}: its file equals the one it writes from CPU local shards")
         os.remove(plain)
         dist.barrier()
+
+        # (c) DTensors at the single-frame entry points
+        run_c = j_dtensor_round_trips(tbt, mesh, tree, state, opts_f, rank, world, workdir)
         local_bytes = sum(
             x.to_local().numel() * x.element_size() if hasattr(x, "to_local")
             else x.numel() * x.element_size() * (rank == 0)
             for x in tree_leaves(tree) if isinstance(x, torch.Tensor))
         record = {"rank": rank, "launches_a": launches_a, "launches_b": launches_b,
+                  "launches_c": run_c.total, "ms_c": run_c.ms,
                   "mesh_ms": t_mesh * 1e3, "mesh_ms_median3": t_mesh2 * 1e3,
                   "mesh_decode_ms": t_dec * 1e3, "save_s": t_save, "save_cpu_s": t_cpu,
                   "local_bytes": local_bytes, "file_bytes": os.path.getsize(mine),
@@ -2556,7 +2768,10 @@ def worker_main(rank: int, world: int, store_file: str, workdir: str) -> int:
             f"{t_dec * 1e3:.3f} ms, launches {nonzero(launches_a)}; save_pytree_sharded of "
             f"{local_bytes} local bytes into {record['file_bytes']} in {t_save:.3f} s "
             f"(from CPU shards {t_cpu:.3f} s), {expected} record(s) on the device route, "
-            f"launches {nonzero(launches_b)}\n")
+            f"launches {nonzero(launches_b)}\n"
+            f"{name} (c), wall ms of each call (synchronised; card {gpu_line()}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in run_c.ms.items())
+            + f"; launches {nonzero(run_c.total)}\n")
         sys.stdout.flush()
     finally:
         dist.destroy_process_group()
@@ -3020,6 +3235,7 @@ def main() -> int:
             print(f"main path I, launches: {nonzero(launches_i)}")
             dist_i = check_and_time_path_i(tbt, inputs_i, results_i, launches_i)
             del results_i
+            launches_i_dtensor = path_i_dtensor(tbt, x_a, opts_a, frame_a)
             trace_i = phase_trace_i(tbt, inputs_i)
         finally:
             dist.destroy_process_group()
@@ -3032,9 +3248,10 @@ def main() -> int:
             module_info[1].wait()
             raise
         check_module_info(module_info)
-        launches_j = [rec[key] for rec in records_j for key in ("launches_a", "launches_b")]
-        print(f"main path J, launches by rank, (a) the frame and (b) the sharded save: "
-              f"{[nonzero(c) for c in launches_j]}")
+        launches_j = [rec[key] for rec in records_j
+                      for key in ("launches_a", "launches_b", "launches_c")]
+        print(f"main path J, launches by rank, (a) the frame, (b) the sharded save and (c) "
+              f"the DTensor entry points: {[nonzero(c) for c in launches_j]}")
         check_path_j(tbt, records_j, dist_i["host_frame"], workdir)
     finally:
         shutil.rmtree(workdir)
@@ -3057,10 +3274,12 @@ def main() -> int:
     src = "tpu_blosc_torch/csrc/"
     pk = "tpu_blosc/filters/pallas_kernels.py:"
     # the kernels' launches in the main paths A, B, D, E, C, G, H (the two
-    # decodes, and the checkpoint load), F, I, J (each rank's two parts),
+    # decodes, and the checkpoint load), F, I (and its DTensor round trip),
+    # J (each rank's three parts),
     # the standalone copy's A and each native-less call
     main_runs = [counts for _, _, counts in results] + [
         launches_c, launches_g, launches_h, launches_h_load, launches_f, launches_i,
+        launches_i_dtensor,
         *launches_j, launches_standalone, *launches_native_less]
 
     def shuffle_entry(kernel: str, key: str, replaces: str) -> dict:

@@ -233,9 +233,10 @@ def test_stream_read_array_forwards_strategy(tmp_path, monkeypatch):
     seen = {}
     real = tb.device.decompress_array
 
-    def spy(data, dtype, shape=None, device=None, strategy="auto"):
+    def spy(data, dtype, shape=None, device=None, sharding=None, strategy="auto"):
         seen["strategy"] = strategy
-        return real(data, dtype, shape=shape, device=device, strategy=strategy)
+        return real(data, dtype, shape=shape, device=device, sharding=sharding,
+                    strategy=strategy)
 
     monkeypatch.setattr(tb.device, "decompress_array", spy)
     with StreamReader(path) as r:

@@ -6,16 +6,24 @@ blosc.SHUFFLE, 4)`` must work as tpu_blosc's quick-start does
 tpu_blosc's frames byte for byte and each package decodes the other's,
 the constants and aliases are equal, the in-place buffer filters give the
 same bytes, and the port exports every name tpu_blosc exports.  Every
+public function, class and method of tpu_blosc.__all__ and of the modules
+the packages share takes the same parameter names in the port, but for
+the differences ALLOWED and ABSENT list with their reasons.  Every
 comparison is exact.
 """
 
 from __future__ import annotations
+
+import importlib
+import inspect
+import pkgutil
 
 import numpy as np
 import pytest
 from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 import tpu_blosc as jb
+import tpu_blosc.codecs
 import tpu_blosc_torch as tb
 
 # names of tpu_blosc.__all__ whose modules the port does not have yet:
@@ -159,3 +167,157 @@ def test_the_names_still_missing_are_exactly_the_queued_modules():
     for name in tb.__all__:
         assert hasattr(tb, name), name
     assert len(set(tb.__all__)) == len(tb.__all__)
+
+
+# ---------------------------------------------------------------------------
+# parameters: every public callable of the shared modules
+# ---------------------------------------------------------------------------
+
+SHARED_MODULES = ["api", "array", "stream", "checkpoint", "device", "container", "stats",
+                  "chunk", "format", "options", "dist.mesh", "dist.multihost", "filters",
+                  *(f"codecs.{m.name}" for m in pkgutil.iter_modules(tpu_blosc.codecs.__path__))]
+
+_SHARDING = ("the port decodes onto a torch device: device= stands beside sharding= (a "
+             "(DeviceMesh, placements) pair), where the JAX package takes a jax sharding alone")
+_GROUP = ("dist/ runs over a torch.distributed process group, one device a rank: group= and "
+          "device= stand where the JAX package takes a jax Mesh")
+
+#: (module, qualified name) -> (parameters the port adds, parameters it lacks, why);
+#: module "" is the package's top level
+ALLOWED = {
+    **{(mod, name): ({"device"}, set(), _SHARDING) for mod, name in [
+        ("device", "decompress_array"), ("", "decompress_array"),
+        ("stream", "StreamReader.read_array"), ("stream", "StreamReader.iter_arrays"),
+        ("stream", "load_array"), ("", "load_array"), ("", "StreamReader.read_array"),
+        ("", "StreamReader.iter_arrays")]},
+    **{("dist.mesh", name): ({"group", "device"}, {"mesh"}, _GROUP) for name in [
+        "compress_chunked_mesh", "decompress_chunked_mesh", "filter_blocks_sharded",
+        "unfilter_blocks_sharded"]},
+    ("dist.mesh", "initialize_distributed"): ({"device"}, set(), _GROUP),
+    **{("dist.multihost", name): ({"group"}, set(), _GROUP) for name in [
+        "allgather_payloads", "compress_chunked_multihost", "decompress_chunked_multihost"]},
+}
+
+#: (module, name) -> why the port has no such callable
+ABSENT = {
+    ("dist.mesh", "block_mesh"): "a jax Mesh of the local devices; a torch rank has one device",
+    ("filters", "device_eligible"): ("the host-buffer device dispatch is not carried over: "
+                                     "host buffers are filtered on the host, where no nvcc "
+                                     "is needed"),
+    ("api", "parse_block_table_checked"): "internal; the port's chunk.parse_block_table checks",
+    ("chunk", "split_blocks"): "internal; the port's callers slice the buffer in place",
+    ("filters", "apply_filter"): "internal; the port's filters.filter_bytes does its work",
+    ("filters", "remove_filter"): "internal; the port's filters.unfilter_bytes does its work",
+}
+
+
+def _params(obj):
+    try:
+        return list(inspect.signature(obj).parameters)
+    except (TypeError, ValueError):  # a builtin without a signature
+        return None
+
+
+def _public(module) -> list:
+    """Public names a module defines (a package: its __all__)."""
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    return [n for n, v in vars(module).items()
+            if not n.startswith("_") and getattr(v, "__module__", None) == module.__name__]
+
+
+def signatures(package) -> dict:
+    """(module, qualified name) -> parameter names of each public function
+    and class (its constructor, and each public method) that tpu_blosc's
+    module defines, looked up by the same name in ``package``'s module."""
+    out = {}
+    for mod in ["", *SHARED_MODULES]:
+        suffix = f".{mod}" if mod else ""
+        jmod = importlib.import_module("tpu_blosc" + suffix)
+        home = importlib.import_module(package.__name__ + suffix)
+        for name in _public(jmod):
+            jobj, obj = getattr(jmod, name), getattr(home, name, None)
+            if not callable(jobj) or obj is None:
+                continue
+            out[mod, name] = _params(obj)
+            if inspect.isclass(jobj):
+                for mname, member in vars(jobj).items():
+                    if (not mname.startswith("_") and inspect.isfunction(member)
+                            and hasattr(obj, mname)):
+                        out[mod, f"{name}.{mname}"] = _params(getattr(obj, mname))
+    return out
+
+
+def differences(ref: dict, port: dict, allowed: dict = ALLOWED, absent: dict = ABSENT) -> list:
+    """Every difference between the two packages' parameters that the
+    allow-lists do not name, and every allow-list entry with no
+    difference behind it."""
+    out = []
+    for key, params in ref.items():
+        if key in absent:
+            if key in port:
+                out.append(f"{key}: listed as absent, but the port has it")
+            continue
+        if key not in port:
+            out.append(f"{key}: absent from the port")
+            continue
+        adds, lacks, _ = allowed.get(key, (set(), set(), ""))
+        mine = port[key]
+        if params is None or mine is None:
+            if params != mine:
+                out.append(f"{key}: {params} against the port's {mine}")
+            continue
+        if key in allowed and not (set(mine) - set(params) == adds
+                                   and set(params) - set(mine) == lacks):
+            out.append(f"{key}: the allow-list says +{adds} -{lacks}, the port has {mine} "
+                       f"against {params}")
+        elif [p for p in mine if p not in adds] != [p for p in params if p not in lacks]:
+            out.append(f"{key}: {params} against the port's {mine}")
+    for key in set(allowed) | set(absent):
+        if key not in ref:
+            out.append(f"{key}: an allow-list entry for a name tpu_blosc does not have")
+    return out
+
+
+@pytest.fixture(scope="module")
+def both_signatures():
+    return signatures(jb), signatures(tb)
+
+
+def test_every_public_callable_takes_tpu_blosc_s_parameters(both_signatures):
+    """The parameter names of every public function, class and method of
+    tpu_blosc.__all__ and of the modules the packages share, in order,
+    against the port's; the allow-lists hold the deliberate differences
+    and the reason for each."""
+    ref, port = both_signatures
+    assert len(ref) > 150
+    assert differences(ref, port) == []
+    assert all(reason for *_, reason in ALLOWED.values()) and all(ABSENT.values())
+
+
+@pytest.mark.parametrize("key, edit", [
+    (("device", "decompress_array"), lambda p: p.remove("sharding")),
+    (("array", "unpack_array"), lambda p: p.remove("sharding")),
+    (("stream", "StreamReader.iter_arrays"), lambda p: p.remove("sharding")),
+    (("stream", "load_array"), lambda p: p.insert(0, "extra")),
+    (("api", "compress"), lambda p: p.reverse()),
+    (("dist.mesh", "compress_chunked_mesh"), lambda p: p.remove("group")),
+    (("options", "Options"), lambda p: p.pop()),
+])
+def test_the_parity_check_fails_on_any_other_difference(both_signatures, key, edit):
+    """A copy of the port's signatures with one parameter deleted, added or
+    moved: the check names that callable."""
+    ref, port = both_signatures
+    mutated = {k: list(v) if v is not None else None for k, v in port.items()}
+    edit(mutated[key])
+    found = differences(ref, mutated)
+    assert len(found) == 1 and found[0].startswith(str(key))
+
+
+def test_the_parity_check_fails_on_a_missing_callable_and_a_stale_entry(both_signatures):
+    ref, port = both_signatures
+    mutated = dict(port)
+    del mutated[("stream", "save_array")]
+    assert differences(ref, mutated) == [f"{('stream', 'save_array')}: absent from the port"]
+    stale = {**ALLOWED, ("api", "compress"): ({"device"}, set(), "none")}
+    assert len(differences(ref, port, allowed=stale)) == 1

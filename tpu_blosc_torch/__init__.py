@@ -6,7 +6,7 @@ its frames are byte-identical to tpu_blosc's: it compiles its own copy of
 tpu_blosc's native host codec (``native/tpublosc.cpp``) and of its
 fastcall module (``native/fastmod.c``).  With ``TPU_BLOSC_NO_NATIVE=1`` it
 runs without a native build, as tpu_blosc does: the codecs in pure
-Python, host buffers of 256 KiB or more filtered on the card.
+Python, host buffers filtered on the host.
 
     import torch, tpu_blosc_torch as tbt
     x = torch.arange(1 << 24, dtype=torch.float32, device="cuda")
@@ -30,7 +30,15 @@ whose CUDA leaves are filtered on the device:
 Several processes, one device each, write one frame or one checkpoint
 together over ``torch.distributed`` (``tpu_blosc_torch.dist``,
 ``checkpoint.save_pytree_sharded``; reached as submodules, as in
-tpu_blosc).
+tpu_blosc).  A ``torch.distributed.tensor.DTensor`` is the port's sharded
+array: ``compress_array``, ``pack_array``, ``StreamWriter.write_array``,
+``save_array`` and ``save_pytree`` gather one (a collective every rank
+of its mesh must enter) and write its full tensor, and the decoders take
+``sharding=(mesh, placements)`` and return a DTensor of this rank's span:
+
+    frame = tbt.compress_array(w)  # w a DTensor: the same frame on every rank
+    w2 = tbt.decompress_array(frame, w.dtype, shape=w.shape,
+                              sharding=(mesh, [Shard(0)]), strategy="device")
 
 The bytes API is tpu_blosc's, name for name, with its open codec
 registry (a registered codec runs at every entry point, the device ones

@@ -15,6 +15,10 @@ device; a CPU tensor or a NumPy array takes the host codec.  Tensors pack
 in their logical C order, as the JAX package packs its device arrays.
 Unpacking gives a CPU tensor, or with ``device`` decodes through
 decompress_array onto that device.
+
+A DTensor packs as its full tensor, gathered first (a collective every rank
+of its mesh enters); ``unpack_array(data, sharding=(mesh, placements))``
+returns a DTensor of this rank's span (≙ tpu_blosc/array.py:171-195).
 """
 
 from __future__ import annotations
@@ -59,8 +63,15 @@ def pack_array(arr, opts: Options | None = None) -> bytes:
 
     ``type_size`` defaults to the element size (at most 255, the frame
     header's limit); ``opts`` overrides every option.  An element type
-    torch lacks raises TypeError.
+    torch lacks raises TypeError.  A DTensor packs as its full tensor: its
+    gather is a collective that every rank of its mesh must enter.
     """
+    from .dist import _sharded
+
+    # a DTensor packs as a sharded jax.Array does: through compress_array
+    sharded = _sharded.is_dtensor(arr)
+    if sharded:
+        arr = _sharded.gather_full(arr)
     if isinstance(arr, torch.Tensor):
         dstr = dtypes.envelope_str(arr.dtype)
         shape = tuple(arr.shape)
@@ -68,7 +79,7 @@ def pack_array(arr, opts: Options | None = None) -> bytes:
             return _envelope_head(dstr, shape, _FLAG_EMPTY)
         head = _envelope_head(dstr, shape, 0)
         opts = opts if opts is not None else _default_opts(arr.element_size())
-        if arr.device.type == "cuda":
+        if sharded or arr.device.type == "cuda":
             return head + compress_array(arr, opts)
         return head + compress_with_options(tensor_bytes(arr).numpy(), opts)
 
@@ -115,13 +126,25 @@ def _nbytes(dtype: torch.dtype, shape) -> int:
     return dtype.itemsize * int(np.prod(shape, dtype=object))
 
 
-def unpack_array(data, device=False) -> torch.Tensor:
+def unpack_array(data, device=False, sharding=None) -> torch.Tensor:
     """The tensor of a pack_array envelope, on the CPU; ``device=True``
     (the current CUDA device) or a device decodes through
     decompress_array (a Fortran-ordered envelope decodes on the host
-    first)."""
+    first).  ``sharding=(mesh, placements)`` implies the device route and
+    returns a DTensor of this rank's span on the mesh's device (no
+    collective; a ``device`` named beside it must be of the mesh's type)."""
     buf = bytes(data)
     dtype, shape, flags, pos = _parse_envelope(buf)
+    if sharding is not None:
+        from .dist import _sharded
+
+        target = _sharded.sharding_device(sharding, device)
+        if flags & _FLAG_EMPTY:
+            return _sharded.place(torch.empty(shape, dtype=dtype), sharding, target)
+        if not flags & _FLAG_FORTRAN:
+            return decompress_array(buf[pos:], dtype, shape=shape, device=target,
+                                    sharding=sharding)
+        return _sharded.place(unpack_array(buf), sharding, target)
     target = load_target(device, "unpack_array")
     if target is not None:
         if flags & _FLAG_EMPTY:

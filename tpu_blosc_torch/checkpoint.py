@@ -27,6 +27,10 @@ tensors and NumPy arrays are "host" records, compressed in batches of up
 to _BATCH_WINDOW_BYTES.  A load onto a device decodes leaf k+1 on a
 worker thread while this thread copies leaf k to the device.
 
+A DTensor leaf of save_pytree is gathered (every rank of its mesh calls
+save_pytree) and written whole by process 0, as the JAX package writes a
+sharded ``jax.Array`` leaf.
+
 Sharded (≙ tpu_blosc/checkpoint.py:396-670): every process of a
 ``torch.distributed`` group calls ``save_pytree_sharded(prefix, tree)``
 and process p writes ``{prefix}.p{p}.tpbs``.  A leaf sharded over the
@@ -42,7 +46,6 @@ one process.
 from __future__ import annotations
 
 import json
-import sys
 
 import numpy as np
 import torch
@@ -235,9 +238,27 @@ def save_pytree(path, tree, opts: Options | None = None, checksum: bool = False,
     flipped bit instead of returning plausible garbage.  ``strategy``
     applies to CUDA leaves (compress_array's: "transfer", "match",
     "auto" or "rle").
+
+    A DTensor leaf is written as the plain "array" of its full tensor, the
+    node the JAX package writes for a sharded ``jax.Array``.  Its gather is
+    a collective: every rank of its mesh calls save_pytree with the same
+    tree, else the others wait until the group's timeout.  The leaves are
+    gathered on this thread in leaf order, before any is written, and
+    process 0 of the default group then writes the file (it holds every
+    gathered leaf until then); the other processes write nothing.
     """
+    from .dist import _group, _sharded
+
     leaves: list = []
     skeleton = _encode(tree, leaves)
+    if any(_sharded.is_dtensor(lf) for lf in leaves):
+        writer = _group.rank() == 0
+        for i, lf in enumerate(leaves):
+            if _sharded.is_dtensor(lf):
+                full = _sharded.gather_full(lf)
+                leaves[i] = full if writer else None
+        if not writer:
+            return
     manifest = json.dumps(
         {"version": _MANIFEST_VERSION, "tree": skeleton, "leaves": len(leaves)}
     ).encode()
@@ -385,56 +406,20 @@ def load_leaf(path, key_path: str, device=False):
 # ---------------------------------------------------------------------------
 
 
-def _is_dtensor(obj) -> bool:
-    """A DTensor can only exist once its module has been imported, so the
-    module is looked up, never imported here."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(obj, mod.DTensor)
-
-
-def _shard_span(obj) -> tuple[list, bool]:
-    """([[start, stop], ...] of this process's local shard of the DTensor
-    ``obj`` in its global shape, whether this process is the one that
-    writes it).
-
-    ``Shard(dim)`` over a mesh dimension of k ranks splits what the
-    dimensions before it left of ``dim`` as ``torch.chunk`` does: pieces
-    of ceil(size / k), a short or empty last one.  Of the ranks that hold
-    the same shard (a ``Replicate`` placement), the one at coordinate 0 of
-    every replicated mesh dimension writes it.
-    """
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh = obj.device_mesh
-    coord = mesh.get_coordinate()
-    if coord is None:
-        raise ValueError("this process is not in the DTensor's device mesh")
-    span = [[0, int(d)] for d in obj.shape]
-    writer = True
-    for m, placement in enumerate(obj.placements):
-        if type(placement) is Shard:
-            start, stop = span[placement.dim]
-            size = stop - start
-            piece = -(-size // mesh.size(m))
-            span[placement.dim] = [start + min(coord[m] * piece, size),
-                                   start + min((coord[m] + 1) * piece, size)]
-        elif type(placement) is Replicate:
-            writer = writer and coord[m] == 0
-        else:
-            raise TypeError(f"unsupported DTensor placement for a checkpoint: {placement!r}")
-    return span, writer
-
-
 def _fully_replicated(obj) -> bool:
     """Every process holds the whole DTensor: no ``Shard`` placement lies
     on a mesh dimension of more than one rank."""
-    _shard_span(obj)  # refuses placements that are neither
+    from .dist._sharded import shard_span
+
+    shard_span(obj)  # refuses placements that are neither
     return all(obj.device_mesh.size(m) == 1 or placement.is_replicate()
                for m, placement in enumerate(obj.placements))
 
 
 def _encode_sharded(obj, leaves: list, pid: int):
-    if _is_dtensor(obj):
+    from .dist._sharded import is_dtensor
+
+    if is_dtensor(obj):
         if obj.numel() == 0:  # no record, only the metadata
             return {"t": "array0", "dtype": dtypes.manifest_name(obj.dtype),
                     "shape": list(obj.shape)}
@@ -481,6 +466,7 @@ def save_pytree_sharded(path_prefix, tree, opts: Options | None = None,
     all files.
     """
     from .dist import _group
+    from .dist._sharded import shard_span
 
     pid = _group.rank()
     leaves: list = []
@@ -493,7 +479,7 @@ def save_pytree_sharded(path_prefix, tree, opts: Options | None = None,
             if obj is not None:
                 records.append(("device" if _on_cuda(obj) else "host", obj))
             continue
-        span, writer = _shard_span(obj)
+        span, writer = shard_span(obj)
         local = obj.to_local()
         if tuple(local.shape) != tuple(b - a for a, b in span):
             raise ValueError(

@@ -46,6 +46,13 @@ filtered stream cross to the device, which rebuilds and unfilters it
 (``records.py``); other frames take the transfer route.
 
 A strategy name that none of these is takes the transfer route.
+
+Sharded tensors (``dist/_sharded.py``): compress_array of a DTensor
+gathers its full tensor onto the local shard's device (a collective every
+rank of its mesh enters) and compresses that, so every rank returns the
+same frame; decompress_array with ``sharding=(mesh, placements)`` decodes
+the whole frame on the mesh's device and returns a DTensor of this rank's
+span (≙ tpu_blosc/device.py:1499-1535, ``jax.device_put(out, sharding)``).
 """
 
 from __future__ import annotations
@@ -106,6 +113,11 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
     unfiltered and sub-block inputs take the host route.  ``strategy``
     is "transfer" (frames byte-identical to the host path), "match" or
     "auto", or "rle" (see the module docstring).
+
+    A DTensor is gathered first: a collective that every rank of its
+    device mesh must enter, with the same tensor, else the others wait
+    until the group's timeout.  Every rank returns the frame of the full
+    tensor.
     """
     return _compress_array_stage2(_compress_array_stage1(x, opts, strategy))
 
@@ -117,6 +129,10 @@ def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str)
     _compress_array_stage2 (≙ tpu_blosc/device.py:720-770)."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"compress_array takes a torch.Tensor, got {type(x)!r}")
+    from .dist import _sharded
+
+    if _sharded.is_dtensor(x):
+        x = _sharded.gather_full(x)
     if opts is None:
         opts = Options()
     itemsize = x.element_size()
@@ -201,7 +217,7 @@ def compress_filtered_slots(filtered: np.ndarray, opts: Options, block_size: int
     return slots, slot, sizes, memcpy_flags
 
 
-def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
+def decompress_array(data, dtype: torch.dtype, shape=None, device=None, sharding=None,
                      strategy: str = "auto") -> torch.Tensor:
     """Decompress a frame into a tensor of ``dtype`` on ``device``.
 
@@ -214,18 +230,36 @@ def decompress_array(data, dtype: torch.dtype, shape=None, device=None,
     "records" ship only literal records to the device, for filtered
     multi-block LZ4 frames without a ragged tail or a block stored raw
     (other frames take the host decode).
+
+    ``sharding=(mesh, placements)`` (a DeviceMesh and its placements,
+    Shard and Replicate) returns a DTensor whose local tensor is this
+    rank's span of the decoded tensor, on the mesh's device (``device``
+    may be given too, and must then be of the mesh's device type).  Each
+    rank decodes the whole frame; no collective is made.  "rle" and
+    "records" then take the transfer route, as in the JAX package.
     """
-    target = filters.target_device(device, "decompress_array")
+    if sharding is not None:
+        from .dist import _sharded
+
+        target = _sharded.sharding_device(sharding, device)
+    else:
+        target = filters.target_device(device, "decompress_array")
     n = checked_decode_size(data, dtype)
     out = None
     if strategy == "device":
         out = _decompress_array_devfilter(data, n, target)
-    elif strategy in ("rle", "records"):
+    elif strategy in ("rle", "records") and sharding is None:
         out = _records.decompress_array_records(data, n, target)
     if out is None:
-        out = host_decode(data, n).to(target)
+        out = host_decode(data, n)
+        if sharding is None:
+            out = out.to(target)
     out = out.view(dtype)
-    return out.reshape(shape) if shape is not None else out
+    if shape is not None:
+        out = out.reshape(shape)
+    if sharding is not None:
+        return _sharded.place(out, sharding, target)
+    return out
 
 
 def checked_decode_size(data, dtype: torch.dtype) -> int:

@@ -24,9 +24,11 @@ Dictionary mode (``train_dict=`` / ``dictionary=``) stores zstd
 dictionary records; it imports ``zstandard`` only when it is used.
 
 A tensor goes in through ``write_array`` (compress_array: on a CUDA
-tensor the filter runs on the device) and comes back through
-``read_array`` / ``iter_arrays`` with ``device=`` where the JAX package
-takes ``sharding=``.
+tensor the filter runs on the device; a DTensor is gathered first, a
+collective every rank of its mesh enters) and comes back through
+``read_array`` / ``iter_arrays`` / ``load_array`` on ``device=``, or with
+``sharding=(mesh, placements)`` as a DTensor of this rank's span
+(≙ tpu_blosc/stream.py:601-632).
 """
 
 from __future__ import annotations
@@ -229,7 +231,9 @@ class StreamWriter:
 
     def write_array(self, x, opts: Options | None = None,
                     strategy: str = "transfer") -> int:
-        """Compress a tensor through compress_array and append."""
+        """Compress a tensor through compress_array and append.  A DTensor
+        is gathered first: every rank of its mesh must call this (each
+        writes the frame of the full tensor to its own writer)."""
         from .device import compress_array
 
         return self.write_frame(
@@ -584,31 +588,37 @@ class StreamReader:
 
         return decompress_range(frame, start, size)
 
-    def read_array(self, i: int, dtype, shape=None, device=None,
+    def read_array(self, i: int, dtype, shape=None, device=None, sharding=None,
                    strategy: str = "auto"):
         """Decompress the i-th record into a tensor of ``dtype`` on
         ``device`` (None: the current CUDA device), through
         decompress_array with ``strategy``; dictionary records decode on
-        the host."""
+        the host.  ``sharding=(mesh, placements)`` returns a DTensor of
+        this rank's span on the mesh's device (no collective)."""
         frame = self.read_frame(i)
         if frame[:4] == DICT_MAGIC:
-            from .filters import target_device
-
-            target = target_device(device, "read_array")
             buf = bytearray(self._decode_dict_record(frame))
             out = torch.frombuffer(buf, dtype=torch.uint8).view(dtype)
             if shape is not None:
                 out = out.reshape(shape)
-            return out.to(target)
+            if sharding is not None:
+                from .dist import _sharded
+
+                return _sharded.place(out, sharding, device)
+            from .filters import target_device
+
+            return out.to(target_device(device, "read_array"))
         from .device import decompress_array
 
         return decompress_array(frame, dtype, shape=shape, device=device,
-                                strategy=strategy)
+                                sharding=sharding, strategy=strategy)
 
-    def iter_arrays(self, dtype, shape=None, device=None, prefetch: int = 2):
-        """Iterate the records as tensors on ``device``, a worker thread
-        decoding up to ``prefetch`` records ahead of the consumer."""
-        return _ArrayIterator(self, dtype, shape, device, prefetch)
+    def iter_arrays(self, dtype, shape=None, device=None, sharding=None,
+                    prefetch: int = 2):
+        """Iterate the records as tensors on ``device``, or as DTensors
+        with ``sharding`` (read_array's), a worker thread decoding up to
+        ``prefetch`` records ahead of the consumer."""
+        return _ArrayIterator(self, dtype, shape, device, sharding, prefetch)
 
     def verify(self, deep: bool = False) -> int:
         """Integrity sweep: walk every record, checking lengths and (when
@@ -688,15 +698,27 @@ def load(path, i: int = 0) -> bytes:
 
 def save_array(path, x, opts: Options | None = None,
                strategy: str = "transfer") -> None:
-    """Compress a tensor to ``path`` through compress_array."""
+    """Compress a tensor to ``path`` through compress_array.
+
+    A DTensor is gathered first, a collective: every rank of its mesh
+    calls save_array, and process 0 of the default group writes the file
+    of the full tensor; the others write nothing."""
+    from .dist import _group, _sharded
+
+    if _sharded.is_dtensor(x):
+        full = _sharded.gather_full(x)
+        if _group.rank() != 0:
+            return
+        x = full
     with StreamWriter(path, opts) as w:
         w.write_array(x, strategy=strategy)
 
 
-def load_array(path, dtype, shape=None, device=None, i: int = 0):
-    """Read record ``i`` of ``path`` into a tensor on ``device``."""
+def load_array(path, dtype, shape=None, device=None, sharding=None, i: int = 0):
+    """Read record ``i`` of ``path`` into a tensor on ``device``, or with
+    ``sharding`` into a DTensor of this rank's span (read_array's)."""
     with StreamReader(path) as r:
-        return r.read_array(i, dtype, shape=shape, device=device)
+        return r.read_array(i, dtype, shape=shape, device=device, sharding=sharding)
 
 
 def _iter_prefetch(make_item, n: int, prefetch: int):
@@ -749,21 +771,29 @@ def _iter_prefetch(make_item, n: int, prefetch: int):
 class _ArrayIterator:
     """Iterable over a stream's records as tensors, with prefetch."""
 
-    def __init__(self, reader: "StreamReader", dtype, shape, device,
+    def __init__(self, reader: "StreamReader", dtype, shape, device, sharding,
                  prefetch: int):
         self._r = reader
         self._dtype = dtype
         self._shape = shape
         self._device = device
+        self._sharding = sharding
         self._prefetch = prefetch
 
     def __len__(self) -> int:
         return len(self._r)
 
     def __iter__(self):
+        device = self._device
+        if self._sharding is not None:
+            from .dist import _sharded
+
+            # the worker thread's current CUDA device is its own: resolve here
+            device = _sharded.sharding_device(self._sharding, device)
         return _iter_prefetch(
             lambda i: self._r.read_array(
-                i, self._dtype, shape=self._shape, device=self._device
+                i, self._dtype, shape=self._shape, device=device,
+                sharding=self._sharding,
             ),
             len(self._r),
             self._prefetch,
