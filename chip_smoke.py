@@ -28,13 +28,17 @@ the sources in the checkout into tpu_blosc_torch/_build/, then:
      kernel, in its nibble and its packed form: offsets 1, 3, 48, 1024,
      3000 (above the kernels' shared-memory halo) and one that leaves the
      whole row literal, and run lengths 1, 3, 8 and 9 with tails 0, 5 and
-     16.  The count kernel: the candidate lists of
-     14 and of 20 offsets and one with an offset above the halo, plus
-     rows with no equal bytes, constant rows, a row where two offsets
-     tie, rows whose only equal pair straddles a tile edge, and a
-     periodic row followed by a row that starts with the same bytes.
-     Each launcher refusing a path whose preconditions fail (and, in
-     step 7, path C's own (1024, 262144) segments, where both are timed);
+     16.  The count kernel, its index and its whole table of counts (a
+     direct call of the launcher): the candidate lists of 14 and of 20
+     offsets and one with an offset above the halo, plus rows with no
+     equal bytes, constant rows, a row where two offsets tie, rows whose
+     only equal pair straddles a tile edge, and a periodic row followed
+     by a row that starts with the same bytes; and at seg 36, 260, 1028,
+     4100, 16396, 16412 and 18440 (no multiples of 32) constant rows and
+     rows of distinct bytes whose last byte decides a count, at every
+     candidate offset, 3000 and seg - 20.  Each launcher refusing a path
+     whose preconditions fail (and, in step 7, path C's own (1024,
+     262144) segments, where both are timed);
    - the probe kernel: 1, 2 and 4 tiles and a 64 MiB (32768, 512) tensor,
      timed on the latter;
    - the bit-shuffle pair: random bytes at type sizes 2, 3, 4, 5, 8, 16
@@ -649,6 +653,46 @@ def count_rows(rng, seg: int) -> tuple[np.ndarray, dict]:
     return np.stack(rows), want
 
 
+def count_table(segs: torch.Tensor, offsets, path: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts, best) of ``tpbt_match_count`` on ``segs`` at ``offsets`` on
+    ``path``: the (nseg, n) table of equal bytes the kernel sums, and each
+    row's index.  A direct call: no wrapper, no launch counted."""
+    from tpu_blosc_torch.filters import kernels
+
+    nseg, seg = segs.shape
+    offs = torch.tensor(offsets, dtype=torch.int32, device=segs.device)
+    counts = torch.zeros((nseg, len(offsets)), dtype=torch.int32, device=segs.device)
+    best = torch.empty(nseg, dtype=torch.int64, device=segs.device)
+    rc = kernels.lib().tpbt_match_count(segs.data_ptr(), offs.data_ptr(), counts.data_ptr(),
+                              best.data_ptr(), nseg, seg, len(offsets), kernels.MATCH_PATHS[path],
+                              torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"tpbt_match_count ({path} path) returned CUDA error {rc}")
+    return counts, best
+
+
+def count_table_plain(segs: torch.Tensor, offsets) -> torch.Tensor:
+    """The table count_table gives, one compare-and-sum pass an offset."""
+    return torch.stack([(segs[:, d:] == segs[:, :-d]).sum(dim=1, dtype=torch.int32)
+                        for d in offsets], dim=1)
+
+
+def tail_rows(seg: int) -> np.ndarray:
+    """Rows of a segment whose length is no multiple of 32: a constant row,
+    the same with another last byte (equal nowhere), a row of distinct
+    bytes, and the same with its last byte repeating the one 1, 24 or
+    1024 before it (equal at that offset alone): the last, partial group
+    of 32 decides those counts."""
+    constant = np.full(seg, 7, np.uint8)
+    distinct = (np.arange(seg) % 251).astype(np.uint8)
+    rows = [constant, distinct, constant.copy()]
+    rows[-1][-1] = 9
+    for d in (1, 24, 1024):
+        if d < seg:
+            rows.append(distinct.copy())
+            rows[-1][-1] = rows[-1][-1 - d]
+    return np.stack(rows)
+
+
 def check_match_refusals(rng) -> None:
     """Each match launcher, handed a path whose preconditions fail or
     arguments out of range, returns cudaErrorInvalidValue, which the
@@ -732,15 +776,25 @@ def phase_match_kernel(rng) -> dict:
         return want
 
     def compare_count(segs, offsets, what):
+        """The count kernel's index on aligned rows (the picked path and
+        the generic one) and on a view 4 bytes off, and on each of them
+        its whole table of counts, against the plain versions."""
         want = fm.count_best_plain(segs, offsets)
+        table = count_table_plain(segs, offsets)
+        picked = kernels.match_path(segs.shape[1], segs.data_ptr())
         for x, path in ((segs, None), (segs, "generic"), (off_by_4(segs), None)):
             got = kernels.match_count(x, offsets, path=path)
+            took = "generic" if path or x is not segs else picked
+            counts, best = count_table(x, offsets, took)
             torch.cuda.synchronize()
             check(got.dtype == torch.int64 and got.shape == want.shape,
                   f"count kernel gives one int64 index a row, {what}")
-            worst["count"] = max(worst["count"], int((got - want).abs().max()))
-            check(torch.equal(got, want), f"count kernel vs plain, {what}: "
-                  f"{got.tolist()} != {want.tolist()}")
+            worst["count"] = max(worst["count"], int((got - want).abs().max()),
+                                 int((counts - table).abs().max()))
+            check(torch.equal(got, want) and torch.equal(best, want),
+                  f"count kernel vs plain, {what}: {got.tolist()} != {want.tolist()}")
+            check(torch.equal(counts, table), f"count kernel's counts ({took}) vs plain, {what}: "
+                  f"rows {torch.nonzero((counts != table).any(dim=1)).view(-1).tolist()[:8]}")
         return want
 
     # 18440 and 20480: a short last tile after a whole one, on each path
@@ -789,6 +843,18 @@ def phase_match_kernel(rng) -> dict:
                       f"and {len(edge_rows)} edge rows with {', '.join(lists)}, on both paths "
                       f"and 4 bytes off alignment; offsets picked {sorted(set(np.asarray(offs)[best.cpu().numpy()].tolist()))}, "
                       f"edge rows {edge_best.tolist()}")
+
+    # segments no multiple of 32 long (the count kernel's last group of a
+    # row is partial), some with a short last tile: constant rows, rows of
+    # distinct bytes, and rows whose last byte alone decides a count
+    for seg in (36, 260, 1028, 4100, 16396, 16412, 18440):
+        offsets = tuple(d for d in (*tm.match_offsets(seg), 3000, seg - 20) if d < seg)
+        rows = tail_rows(seg)
+        compare_count(torch.from_numpy(rows).to(DEVICE), offsets, f"seg={seg} tail rows")
+    print("count kernel: seg 36, 260, 1028, 4100, 16396, 16412 and 18440 (seg % 32 != 0), "
+          "constant and distinct rows with and without an equal last byte at d = 1, 24 and "
+          "1024, every candidate offset with 3000 and seg - 20: index and counts equal to "
+          "the plain version on both paths and 4 bytes off alignment")
 
     taken = dict(kernels.launches)
     for kernel in ("match_nibble", "match_count"):
@@ -971,22 +1037,33 @@ def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
     # each byte and each row's offset once and writes a bit a byte and a
     # count a row (packed form, the one path C runs) or a nibble byte per 4
     # bytes, with one compare and 2 (T - 1) bit operations a position; the
-    # count reads each byte and the offsets once and writes an index a row,
-    # with one compare and one add for each position at or past each offset
+    # count reads each byte and the offsets once and writes an index a row.
+    # Its bound is by bytes alone: the kernel compares 32 positions in one
+    # logic instruction, so one compare and one add for each position at
+    # or past each offset (the operations figure, beside it) is no floor
     mask_ops = segs.numel() * (1 + 2 * (fm.MATCH_T - 1))
     bounds = {
         "mask": bound(segs.numel() + 4 * nseg + segs.numel() // 8 + 4 * nseg, mask_ops),
         "nibble": bound(segs.numel() + 4 * nseg + segs.numel() // 4,
                         mask_ops),
-        "count": bound(segs.numel() + 4 * len(offsets) + 8 * nseg,
-                       2 * nseg * sum(seg - d for d in offsets)),
+        "count": bound(segs.numel() + 4 * len(offsets) + 8 * nseg, 0),
     }
+    ops_figure_ms = 2 * nseg * sum(seg - d for d in offsets) / PEAK_OPS_PER_S * 1e3
+    count_figures = {"ops_figure_ms": ops_figure_ms,
+                     "share_of_bound": bounds["count"]["bound_ms"] / ms["count"],
+                     "share_of_ops_figure": ops_figure_ms / ms["count"]}
     print(f"match kernel times on C's segments {tuple(segs.shape)} at their offsets, ms as "
           f"turn 1 / turn 2 (mean of 20 launches each, the plain versions of 3): " + ", ".join(
               f"{k} {v[0]:.4f} / {v[1]:.4f} = {segs.numel() / statistics.mean(v) / 1e6:.1f} GB/s"
               for k, v in runs.items())
           + f" (GB/s of input bytes); equal outputs; bounds: " + ", ".join(
               f"{k} {b['bound_ms']:.4f} ms by {b['bound_by']}" for k, b in bounds.items()))
+    print(f"count kernel on C's segments: {ms['count']:.4f} ms = "
+          f"{100 * count_figures['share_of_bound']:.1f}% of the bytes bound "
+          f"{bounds['count']['bound_ms']:.4f} ms and "
+          f"{100 * count_figures['share_of_ops_figure']:.1f}% of the operations figure "
+          f"{count_figures['ops_figure_ms']:.4f} ms (one compare and one add a position and "
+          f"offset at {PEAK_OPS_PER_S:.3g}/s); card {gpu_line()}")
     return {
         # the kernel in the form path C launches, and in its nibble form
         "nibble": {"max_abs_err": err, "ms": ms["mask"], "generic_ms": ms["mask_generic"],
@@ -995,7 +1072,7 @@ def check_and_time_path_c(tbt, x, opts, frame, y) -> dict:
                                    "plain_ms": ms["nibble_plain"], **bounds["nibble"]}},
         "count": {"max_abs_err": int((best - best_plain).abs().max()), "ms": ms["count"],
                   "generic_ms": ms["count_generic"], "plain_ms": ms["count_plain"],
-                  **bounds["count"]},
+                  **bounds["count"], **count_figures},
     }
 
 

@@ -36,35 +36,70 @@
 // Both kernels take one tile of 16384 positions of one row per thread
 // block, staged once into shared memory with a left halo of kHalo = 1024
 // bytes (the largest default offset), so device memory is read once (plus
-// the halo, 6%) and every partner x[p-d] with d <= kHalo is a shared-memory
-// word.  The halo of a row's first tile is never loaded and never counted:
-// the bytes before a row belong to the previous row.  Consecutive threads
-// take consecutive 32-bit words, so no offset causes a bank conflict: for
-// d % 4 == 0 the partner is one aligned word, otherwise a funnel shift of
-// two neighbouring words.  An offset above kHalo takes its partner bytes
-// from device memory (no default offset does).
+// the halo, 6%) and every partner x[p-d] with d <= kHalo is in shared
+// memory.  The halo of a row's first tile is never loaded and never
+// counted: the bytes before a row belong to the previous row.  An offset
+// above kHalo takes its partner bytes from device memory (no default
+// offset does).
 //
-// What bounds the count kernel: the instruction rate, not bytes.  A word
-// costs 6 instructions per offset (load, xor, a 3-instruction exact
-// zero-byte test, one dp4a that adds the four flags to the accumulator),
-// 20 offsets a word; then one warp reduction (redux.sync) and one
-// shared-memory atomic per warp and offset, and one device-memory atomic
-// per tile and offset into the zeroed (nseg, n) int32 buffer the caller
-// provides.  Integer atomics keep the counts exact whatever their order.
-// A second small kernel takes the first arg-max of each row as a 64-bit
-// index.
+// What bounds the count kernel: integer instructions, not bytes (256 MiB
+// read once is 0.08 ms on the H100).  Comparing a word of 4 positions at a
+// time (an exact zero-byte test and a dp4a: 6-7 instructions per 4
+// positions and offset) is held at the integer instruction rate, so the
+// kernel stores the tile as bit planes, and one logic instruction compares
+// 32 positions:
+//
+// - Staging: 16-byte chunks (cp.async on vec16; on generic, 4-byte words
+//   of aligned loads and a funnel shift) at swizzled slots (swizzle), so 8
+//   neighbouring threads reading the same chunk of their units hit 8 bank
+//   quads.  Once a tile's bytes are planes, the block stages its next tile
+//   into the same buffer, so the copy runs under the counts (vec16).
+// - Planes, once per tile for every offset: 128 threads, thread t owns
+//   the unit of 128 positions p0 + 128 t, four groups of 32; each group's
+//   32 bytes become its 8 planes (plane k bit l = bit k of byte l) by two
+//   4x4 byte transposes and three bit-block swaps (bit_planes, 76
+//   instructions).  The planes stay in registers and go to shared memory
+//   laid out [plane][group], so a unit's plane is one 16-byte word and
+//   neighbouring threads' units are neighbouring words.  The halo's 32
+//   groups are one a lane of warp 0.
+// - Compare: p and p - d (d = 32q + r) hold the same byte when all 8
+//   planes agree.  The partner plane of group j is funnelshift_l(plane of
+//   group j-q-1, plane of group j-q, r), the mismatch word M = OR_k
+//   (P_k ^ Q_k): 8 three-input logic instructions (plus 8 funnel shifts
+//   when r != 0) per 32 positions, and the count popc(~M & valid).  For
+//   d < 64 (11 of the 20 default offsets) every partner plane is in the
+//   thread's registers (its unit and the two groups before it); from 64 to
+//   kHalo (the other 9, all multiples of 32) a plane's partners for the
+//   unit are one or two 16-byte shared-memory words.
+// - valid clears positions below d (the first tile), past the row's end
+//   (seg % 32 != 0) and past a short last tile's end; whole units in the
+//   clear count 128 - popc(M) with no mask.
+// - Per offset, one warp reduction (redux.sync) that every lane stores to
+//   the warp's slot; per tile and offset, one device-memory atomic of the
+//   4 warps' sum into the zeroed (nseg, n) int32 buffer the caller
+//   provides.  Integer atomics keep the counts exact whatever their order.
+//   A second small kernel takes the first arg-max of each row as a 64-bit
+//   index.
+//
+// Per 32 positions that is about 76 instructions of planes and 9-18 per
+// offset (plus the loop's own), against 48-56 per offset by words.  80
+// registers and 35.5 KB of shared memory a block let 6 blocks share an SM.
+// The popcount, a quarter-rate instruction, does not set the pace.
 //
 // What bounds the mask kernel: bytes (seg read once, seg/4 or seg/8
-// written).  eq is kept as bits.  Phase 1 folds the zero-byte flags of
-// each word into a nibble (one multiply) and masks it with the head
-// (p >= d) and tail (p < seg - tail) conditions; the nibbles go to shared
-// memory.  Phase 2 gives each thread 64 positions: 16 nibble bytes in one
-// 16-byte load, plus the 8 positions on either side (T - 1 <= 8), as one
-// 80-bit window in three words.  Erosion and dilation are funnel shifts of
-// that window, doubling (for T = 8: by 1, 2 and 4), so no thread needs
-// another's result, and the 16 nibble bytes leave in one 16-byte store
-// (or the 8 packed bytes in one 8-byte store, with a popcount that one
-// warp reduction and one atomic per warp add to the row's count).
+// written).  Its threads take consecutive 32-bit words, so no offset causes
+// a bank conflict: for d % 4 == 0 the partner is one aligned word,
+// otherwise a funnel shift of two neighbouring words.  eq is kept as bits.
+// Phase 1 folds the zero-byte flags of each word into a nibble (one
+// multiply) and masks it with the head (p >= d) and tail (p < seg - tail)
+// conditions; the nibbles go to shared memory.  Phase 2 gives each thread
+// 64 positions: 16 nibble bytes in one 16-byte load, plus the 8 positions
+// on either side (T - 1 <= 8), as one 80-bit window in three words.
+// Erosion and dilation are funnel shifts of that window, doubling (for
+// T = 8: by 1, 2 and 4), so no thread needs another's result, and the 16
+// nibble bytes leave in one 16-byte store (or the 8 packed bytes in one
+// 8-byte store, with a popcount that one warp reduction and one atomic per
+// warp add to the row's count).
 //
 // Each launcher takes one of two paths, which the caller names
 // (filters/kernels.py match_path):
@@ -92,7 +127,6 @@ enum Path { kGeneric = 0, kVec16 = 1 };
 constexpr int kThreads = 256;
 constexpr int kTile = 16384;         // positions of one row per tile
 constexpr int kTileWords = kTile / 4;
-constexpr int kWordsPerThread = kTileWords / kThreads;
 constexpr int kHalo = 1024;          // bytes staged left of a tile
 constexpr int kMaxOffsets = 32;
 constexpr int kMaxT = 9;
@@ -109,6 +143,14 @@ __device__ __forceinline__ void cp_async16(uint32_t smem, const void *gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Stage bytes [a, b) of the row x (positions relative to the row; a may be
@@ -155,108 +197,312 @@ __device__ __forceinline__ uint32_t fold_flags(uint32_t t) {
 
 // ---- the count kernel ------------------------------------------------
 
-// Equal bytes of this thread's words against their partners at offset
-// d <= kHalo.  kHead: the tile is the row's first, so positions below d
-// are masked out; they lie in the first kThreads words, one a thread.
-// kFull: the tile has all its kTileWords words.
-static_assert(kHalo <= 4 * kThreads, "a head mask for the first word of a thread only");
+// A block takes one tile of a row, as the mask kernel does, with 128
+// threads: thread t owns the unit of kUnit positions p0 + kUnit t, four
+// groups of 32.  A group is kept as its 8 bit planes, one word each: bit
+// l of plane k is bit k of the group's byte l.
+constexpr int kCountThreads = 128;
+constexpr int kUnit = 128;
+constexpr int kGroups = kUnit / 32;
+constexpr int kSpanGroups = (kHalo + kTile) / 32;  // groups of the staged span
+static_assert(kTile == kCountThreads * kUnit, "one unit a thread");
+static_assert(kGroups == 4, "a unit's plane is one 16-byte word");
+static_assert(kHalo / 32 <= 32, "the halo's groups, one a lane of the first warp");
 
-template <bool kHead, bool kFull, bool kAligned>
-__device__ __forceinline__ uint32_t count_words(const uint32_t *sw,
-                                                const uint32_t *xw, int nw,
-                                                int d) {
-  // the partner of word w = k * kThreads + tid starts at pw[k * kThreads]
-  // (d % 4 == 0) or sh bits into the word before it
-  const uint32_t *pw = sw + kHalo / 4 - (d >> 2) + threadIdx.x;
-  const int sh = 8 * (4 - (d & 3));
-  uint32_t acc = 0;  // 128 for every equal byte
-#pragma unroll
-  for (int k = 0; k < kWordsPerThread; ++k) {
-    const int w = k * kThreads + (int)threadIdx.x;
-    if (!kFull && w >= nw) break;
-    const uint32_t other =
-        kAligned ? pw[k * kThreads]
-                 : __funnelshift_r(pw[k * kThreads - 1], pw[k * kThreads], sh);
-    uint32_t t = eq_flags(xw[k], other);
-    if (kHead && k == 0) {
-      const int below = d - 4 * w;  // bytes of the word at positions < d
-      if (below >= 4)
-        t = 0;
-      else if (below > 0)
-        t &= 0xffffffffu << (8 * below);
+// Chunk slot of the 16-byte chunk c of a staged span: the 8 chunks of a
+// unit (128 bytes) stay in its 128 bytes, turned so that the chunk m of 8
+// neighbouring units lies in 8 different bank quads.
+__device__ __forceinline__ int swizzle(int c) { return c ^ ((c >> 3) & 7); }
+
+// Stage bytes [a, b) of the row x (positions relative to the row; a may be
+// negative) to the chunks of s at their swizzled slots.  Positions outside
+// [0, seg) are not read.  a, b and seg are multiples of 4, so a word of 4
+// positions lies wholly inside or outside the row; on the vec16 path they,
+// x and s are multiples of 16.  vec16 starts 16-byte cp.async copies and
+// returns (wait_staged waits for them); the generic path reads the aligned
+// words of device memory that hold a row word, one or two (each holds a
+// byte of the row), funnel-shifts them and stores them.
+template <bool kVec>
+__device__ __forceinline__ void stage_count(uint8_t *s, const uint8_t *x, int a,
+                                            int b, int seg) {
+  if (kVec) {
+    const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(s);
+    const int c0 = a / 16;
+    for (int c = c0 + (int)threadIdx.x; c < b / 16; c += kCountThreads)
+      if (c >= 0 && 16 * c < seg) cp_async16(s0 + 16 * swizzle(c - c0), x + 16 * c);
+    cp_async_commit();
+  } else {
+    const int mis = (int)((uintptr_t)x & 3);
+    const uint32_t *xw = (const uint32_t *)(x - mis);  // word i/4 holds x[i - mis]
+    for (int k = 4 * (int)threadIdx.x; k < b - a; k += 4 * kCountThreads) {
+      const int i = a + k;
+      if (i < 0 || i >= seg) continue;
+      const uint32_t lo = xw[i / 4];
+      const uint32_t w = mis ? __funnelshift_r(lo, xw[i / 4 + 1], 8 * mis) : lo;
+      *(uint32_t *)(s + 16 * swizzle(k >> 4) + (k & 15)) = w;
     }
-    acc = __dp4a(t, 0x01010101u, acc);
   }
-  return acc >> 7;
 }
 
-template <bool kHead, bool kFull>
-__device__ __forceinline__ uint32_t count_near(const uint32_t *sw,
-                                               const uint32_t *xw, int nw,
-                                               int d) {
-  return d % 4 == 0 ? count_words<kHead, kFull, true>(sw, xw, nw, d)
-                    : count_words<kHead, kFull, false>(sw, xw, nw, d);
+// Wait for this thread's staging copies, then for every thread.
+template <bool kVec>
+__device__ __forceinline__ void wait_staged() {
+  if (kVec) cp_async_wait();
+  __syncthreads();
 }
 
-// The same for an offset above the halo: partner bytes from device memory.
-__device__ __forceinline__ uint32_t count_far(const uint8_t *x,
-                                              const uint32_t *xw, int nw,
-                                              int p0, int d) {
-  uint32_t c = 0;
-  for (int k = 0; k < kWordsPerThread; ++k) {
-    const int w = k * kThreads + (int)threadIdx.x;
-    if (w >= nw) break;
-    for (int b = 0; b < 4; ++b) {
-      const int p = p0 + 4 * w + b;
-      if (p >= d) c += ((xw[k] >> (8 * b)) & 0xff) == x[p - d];
+// Swap the bits of x that mask << s selects with the bits of y that mask
+// selects.
+__device__ __forceinline__ void swap_bits(uint32_t &x, uint32_t &y, int s,
+                                          uint32_t mask) {
+  const uint32_t t = ((x >> s) ^ y) & mask;
+  y ^= t;
+  x ^= t << s;
+}
+
+// The 8 bit planes p of 32 bytes w (word i holds bytes 4i .. 4i+3).  A bit
+// is (word i, byte m, bit k) with i = (i2 i1 i0), m = (m1 m0); the planes
+// want it at (word k, bit 4i + m).  Two 4x4 byte transposes move i2 i1 into
+// the byte index and m into the word index; three swaps of bit blocks
+// between words exchange i0, m0 and m1 with k2, k0 and k1.  76 integer
+// instructions a group, paid once for every offset.
+__device__ __forceinline__ void bit_planes(const uint32_t (&w)[8], uint32_t (&p)[8]) {
+  uint32_t v[8];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {  // byte a of v[2m + e] = byte m of w[2a + e]
+    const uint32_t x0 = __byte_perm(w[e], w[2 + e], 0x5140);
+    const uint32_t x1 = __byte_perm(w[e], w[2 + e], 0x7362);
+    const uint32_t x2 = __byte_perm(w[4 + e], w[6 + e], 0x5140);
+    const uint32_t x3 = __byte_perm(w[4 + e], w[6 + e], 0x7362);
+    v[e] = __byte_perm(x0, x2, 0x5410);
+    v[2 + e] = __byte_perm(x0, x2, 0x7632);
+    v[4 + e] = __byte_perm(x1, x3, 0x5410);
+    v[6 + e] = __byte_perm(x1, x3, 0x7632);
+  }
+  // word (m1 m0 i0), bit (i2 i1 k2 k1 k0)
+#pragma unroll
+  for (int a = 0; a < 4; ++a) swap_bits(v[2 * a], v[2 * a + 1], 4, 0x0f0f0f0fu);
+  // word (m1 m0 k2), bit (i2 i1 i0 k1 k0)
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int i = (h & 1) | ((h & 2) << 1);  // 0, 1, 4, 5
+    swap_bits(v[i], v[i + 2], 1, 0x55555555u);
+  }
+  // word (m1 k0 k2), bit (i2 i1 i0 k1 m0)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) swap_bits(v[i], v[i + 4], 2, 0x33333333u);
+  // word (k1 k0 k2), bit (i2 i1 i0 m1 m0)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) p[k] = v[((k & 3) << 1) | (k >> 2)];
+}
+
+// The planes of group h of the staged bytes xs (unit h / 4, chunks at
+// their swizzled slots).  Plane k of group h is planes[k * kSpanGroups + h]:
+// a unit's plane is one 16-byte word, and neighbouring threads' units are
+// neighbouring words.
+__device__ __forceinline__ void group_planes(const uint8_t *xs, int h, uint32_t (&p)[8]) {
+  const uint4 *s4 = (const uint4 *)xs;
+  const int u = h / kGroups, j = h % kGroups;
+  const uint4 a = s4[8 * u + ((2 * j) ^ (u & 7))];
+  const uint4 b = s4[8 * u + ((2 * j + 1) ^ (u & 7))];
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  bit_planes(w, p);
+}
+
+// m[j] bit l = 1 where position l of the thread's group j differs from its
+// partner at offset d (= 32q + r): every plane of the group XOR its partner
+// plane, ORed together.  g[2 + j] holds the planes of group j, g[0] and
+// g[1] those of the two groups before the unit.  The partner plane is
+// funnelshift_l(plane of group j - q - 1, plane of group j - q, r).
+//
+// d < 64: the partners are in registers.
+__device__ __forceinline__ void mismatch_near(const uint32_t (&g)[kGroups + 2][8],
+                                              int d, uint32_t (&m)[kGroups]) {
+  const int r = d & 31;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) m[j] = 0;
+  if (d < 32) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        m[j] |= g[j + 2][k] ^ __funnelshift_l(g[j + 1][k], g[j + 2][k], r);
+  } else if (r == 0) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m[j] |= g[j + 2][k] ^ g[j + 1][k];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        m[j] |= g[j + 2][k] ^ __funnelshift_l(g[j][k], g[j + 1][k], r);
+  }
+}
+
+// 64 <= d <= kHalo: the partners are planes in shared memory.  The
+// groups h0 - q - 1 .. h0 - q + 3 of the thread's unit at group h0 lie in
+// the 8 groups from the 16-byte word w0, at kM = 3 - q % 4 and after; a
+// plane takes one 16-byte load when q % 4 == 0 and r == 0 (6 of the 9
+// default offsets of this range: the word before is not needed), two
+// otherwise.
+template <int kQ4, bool kShift>
+__device__ __forceinline__ void mismatch_window(const uint32_t *planes, int h0,
+                                                const uint32_t (&g)[kGroups + 2][8],
+                                                int d, uint32_t (&m)[kGroups]) {
+  constexpr int kM = 3 - kQ4;
+  constexpr bool kLow = kShift || kQ4 != 0;  // the first word is read
+  const int q = d >> 5, r = d & 31;
+  const uint32_t *w0 = planes + h0 - q - 1 - kM;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) m[j] = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint4 a = kLow ? *(const uint4 *)(w0 + k * kSpanGroups) : make_uint4(0, 0, 0, 0);
+    const uint4 b = *(const uint4 *)(w0 + k * kSpanGroups + 4);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      const uint32_t partner =
+          kShift ? __funnelshift_l(w[kM + j], w[kM + 1 + j], r) : w[kM + 1 + j];
+      m[j] |= g[j + 2][k] ^ partner;
     }
+  }
+}
+
+template <bool kShift>
+__device__ __forceinline__ void mismatch_shared(const uint32_t *planes, int h0,
+                                                const uint32_t (&g)[kGroups + 2][8],
+                                                int d, uint32_t (&m)[kGroups]) {
+  switch ((d >> 5) & 3) {
+    case 0: mismatch_window<0, kShift>(planes, h0, g, d, m); break;
+    case 1: mismatch_window<1, kShift>(planes, h0, g, d, m); break;
+    case 2: mismatch_window<2, kShift>(planes, h0, g, d, m); break;
+    default: mismatch_window<3, kShift>(planes, h0, g, d, m); break;
+  }
+}
+
+// The lowest b bits, for any b.
+__device__ __forceinline__ uint32_t bits_below(int b) {
+  return b <= 0 ? 0u : b >= 32 ? 0xffffffffu : (1u << b) - 1u;
+}
+
+// Positions p of the unit at pu with lo <= p < hi and a 0 in m.  The
+// masks clear what lies before the offset on a row's first tile (the
+// halo there is never loaded) and past the row's or the tile's end.
+__device__ __forceinline__ uint32_t count_equal(const uint32_t (&m)[kGroups], int pu,
+                                                int lo, int hi) {
+  uint32_t c = 0;
+  if (pu >= lo && pu + kUnit <= hi) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) c += __popc(m[j]);
+    return kUnit - c;
+  }
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const int pg = pu + 32 * j;
+    c += __popc(~m[j] & bits_below(hi - pg) & ~bits_below(lo - pg));
   }
   return c;
 }
 
+// An offset above the halo: byte by byte, partners from device memory.
+__device__ __forceinline__ uint32_t count_far_bytes(const uint8_t *x, int pu, int end,
+                                                    int d) {
+  uint32_t c = 0;
+  const int stop = min(pu + kUnit, end);
+  for (int p = max(pu, d); p < stop; ++p) c += x[p] == x[p - d];
+  return c;
+}
+
+// kCountBlocks blocks an SM: 6 x 128 threads at 80 registers, 6 x 35.5 KB
+// of shared memory.
+constexpr int kCountBlocks = 6;
+
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCountThreads, kCountBlocks)
 match_count(const uint8_t *__restrict__ segs, const int32_t *__restrict__ offsets,
             int n, int32_t *__restrict__ counts, int64_t nseg, int seg) {
   __shared__ __align__(16) uint8_t xs[kHalo + kTile];
+  __shared__ __align__(16) uint32_t planes[8 * kSpanGroups];
   __shared__ int offs[kMaxOffsets];
-  __shared__ int cnt[kMaxOffsets];
-  const uint32_t *sw = (const uint32_t *)xs;
+  __shared__ int warp_counts[kCountThreads / 32][kMaxOffsets];
   const int tid = threadIdx.x;
+  const int h0 = kHalo / 32 + kGroups * tid;  // this thread's first group of the span
   const int64_t tiles = (seg + kTile - 1) / kTile;
+  const int64_t total = nseg * tiles;
   if (tid < n) offs[tid] = offsets[tid];
-  for (int64_t t = blockIdx.x; t < nseg * tiles; t += gridDim.x) {
+  // tile t is row t / tiles, positions from (t % tiles) * kTile
+  auto stage_tile = [&](int64_t t) {
+    const int64_t r = t / tiles;
+    const int p0 = (int)(t - r * tiles) * kTile;
+    stage_count<kVec>(xs, segs + r * seg, p0 - kHalo, min(p0 + kTile, seg), seg);
+  };
+  if (blockIdx.x < total) stage_tile(blockIdx.x);
+  for (int64_t t = blockIdx.x; t < total; t += gridDim.x) {
     const int64_t r = t / tiles;
     const int p0 = (int)(t - r * tiles) * kTile;
     const uint8_t *x = segs + r * seg;
     const int end = min(p0 + kTile, seg);
-    const int nw = (end - p0) / 4;
-    if (tid < n) cnt[tid] = 0;
-    load_span<kVec>(xs, x, p0 - kHalo, end, seg);
-    uint32_t xw[kWordsPerThread];
+    const int pu = p0 + kUnit * tid;  // this thread's first position
+    const bool active = pu < end;
+    wait_staged<kVec>();
+    // the halo's 32 groups, one a lane of the first warp (not on a row's
+    // first tile: its halo is never loaded)
+    if (p0 > 0 && tid < kHalo / 32) {
+      uint32_t p[8];
+      group_planes(xs, tid, p);
 #pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-      const int w = k * kThreads + tid;
-      xw[k] = w < nw ? sw[kHalo / 4 + w] : 0;
+      for (int k = 0; k < 8; ++k) planes[k * kSpanGroups + tid] = p[k];
+    }
+    uint32_t g[kGroups + 2][8];
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) group_planes(xs, h0 + j, g[2 + j]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        *(uint4 *)(planes + k * kSpanGroups + h0) = make_uint4(g[2][k], g[3][k], g[4][k], g[5][k]);
+    }
+    __syncthreads();
+    // the bytes are in planes now: stage the block's next tile behind the
+    // counts of this one
+    if (t + gridDim.x < total) stage_tile(t + gridDim.x);
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint2 prev = *(const uint2 *)(planes + k * kSpanGroups + h0 - 2);
+        g[0][k] = prev.x;
+        g[1][k] = prev.y;
+      }
     }
     for (int i = 0; i < n; ++i) {
       const int d = offs[i];
       uint32_t c = 0;
-      if (d < 1)
-        c = 0;
-      else if (d > kHalo)
-        c = count_far(x, xw, nw, p0, d);
-      else if (p0 == 0)
-        c = nw == kTileWords ? count_near<true, true>(sw, xw, nw, d)
-                             : count_near<true, false>(sw, xw, nw, d);
-      else
-        c = nw == kTileWords ? count_near<false, true>(sw, xw, nw, d)
-                             : count_near<false, false>(sw, xw, nw, d);
-      c = __reduce_add_sync(0xffffffffu, c);
-      if ((tid & 31) == 0 && c != 0) atomicAdd(&cnt[i], (int)c);
+      if (active && d >= 1) {
+        if (d > kHalo) {
+          c = count_far_bytes(x, pu, end, d);
+        } else {
+          uint32_t m[kGroups];
+          if (d < 64)
+            mismatch_near(g, d, m);
+          else if (d % 32 == 0)
+            mismatch_shared<false>(planes, h0, g, d, m);
+          else
+            mismatch_shared<true>(planes, h0, g, d, m);
+          c = count_equal(m, pu, d, end);
+        }
+      }
+      // every lane stores the warp's sum to the same word
+      warp_counts[tid / 32][i] = (int)__reduce_add_sync(0xffffffffu, c);
     }
     __syncthreads();
-    if (tid < n && cnt[tid] != 0) atomicAdd(&counts[r * n + tid], cnt[tid]);
+    if (tid < n) {
+      int c = 0;
+#pragma unroll
+      for (int w = 0; w < kCountThreads / 32; ++w) c += warp_counts[w][tid];
+      if (c != 0) atomicAdd(&counts[r * n + tid], c);
+    }
   }
 }
 
@@ -487,11 +733,11 @@ int tpbt_match_count(const void *segs, const void *offsets, void *counts,
   if (nseg == 0) return 0;
   const unsigned grid = tile_grid(nseg, seg);
   if (path == kVec16)
-    match_count<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    match_count<true><<<grid, kCountThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t *)segs, (const int32_t *)offsets, (int)n,
         (int32_t *)counts, nseg, (int)seg);
   else
-    match_count<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    match_count<false><<<grid, kCountThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t *)segs, (const int32_t *)offsets, (int)n,
         (int32_t *)counts, nseg, (int)seg);
   if (const int rc = (int)cudaGetLastError()) return rc;
