@@ -87,6 +87,7 @@ from .errors import InvalidDataError
 from .format import HEADER_SIZE, Codec, Shuffle, parse_header
 from .native import backend as _nb
 from .options import Options
+from .stats import span
 
 # bit 3 of the native shuffle mode: the stream arrives already filtered
 # (tpu_blosc/device.py:818-821); zlib's byte identity depends on it
@@ -119,7 +120,8 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
     until the group's timeout.  Every rank returns the frame of the full
     tensor.
     """
-    return _compress_array_stage2(_compress_array_stage1(x, opts, strategy))
+    with span("tpbt.compress"):
+        return _compress_array_stage2(_compress_array_stage1(x, opts, strategy))
 
 
 def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str):
@@ -149,7 +151,10 @@ def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str)
     do_filter = opts.shuffle != Shuffle.NOSHUFFLE and opts.type_size > 1
     use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
     if not use_chunked or not do_filter or nb_full == 0:
-        return compress_with_options(flat.cpu().numpy(), opts)
+        with span("tpbt.compress.d2h"):
+            host = flat.cpu().numpy()
+        with span("tpbt.compress.codec"):
+            return compress_with_options(host, opts)
     engage = {"match": _match.compress_array_match, "auto": _match.compress_array_match,
               "rle": _rle.compress_array_rle}.get(strategy)
     # the strategies emit the native LZ4 format: not for a registered override
@@ -170,15 +175,18 @@ def _device_filter_fetch(flat: torch.Tensor, opts: Options, nb_full: int,
     elements, stay verbatim."""
     ts = opts.type_size
     body = nb_full * block_size
-    staged = torch.empty_like(flat)
-    filters.filter_blocks(
-        flat[:body].view(nb_full, block_size), ts, opts.shuffle,
-        out=staged[:body].view(nb_full, block_size),
-    )
-    staged[body:] = flat[body:]
-    host = staged.cpu().numpy()  # the one device-to-host copy
+    with span("tpbt.compress.filter"):
+        staged = torch.empty_like(flat)
+        filters.filter_blocks(
+            flat[:body].view(nb_full, block_size), ts, opts.shuffle,
+            out=staged[:body].view(nb_full, block_size),
+        )
+        staged[body:] = flat[body:]
+    with span("tpbt.compress.d2h"):
+        host = staged.cpu().numpy()  # the one device-to-host copy
     if host.size - body >= ts:
-        host[body:] = filters.filter_bytes(host[body:], ts, opts.shuffle)
+        with span("tpbt.compress.host_filter"):
+            host[body:] = filters.filter_bytes(host[body:], ts, opts.shuffle)
     return host
 
 
@@ -190,11 +198,13 @@ def _compress_array_stage2(staged) -> bytes:
         return staged
     filtered, opts, block_size = staged
     if native_pipeline_codec(opts.codec, opts.level) is None:
-        payloads, memf = registry_payloads(filtered, block_size, opts)
-        return assemble_payload_frame(opts, filtered.size, block_size, payloads, memf)
-    return assemble_split_frame(
-        opts, filtered.size, block_size, *compress_filtered_slots(filtered, opts, block_size)
-    )
+        with span("tpbt.compress.codec"):
+            payloads, memf = registry_payloads(filtered, block_size, opts)
+        with span("tpbt.compress.frame"):
+            return assemble_payload_frame(opts, filtered.size, block_size, payloads, memf)
+    slots = compress_filtered_slots(filtered, opts, block_size)
+    with span("tpbt.compress.frame"):
+        return assemble_split_frame(opts, filtered.size, block_size, *slots)
 
 
 def compress_filtered_slots(filtered: np.ndarray, opts: Options, block_size: int):
@@ -207,13 +217,17 @@ def compress_filtered_slots(filtered: np.ndarray, opts: Options, block_size: int
     inverse of the filter that made them.
     """
     native_codec, depth = native_pipeline_codec(opts.codec, opts.level)
-    slots, slot, sizes, memcpy_flags = _nb.compress_slots(
-        filtered, block_size, opts.type_size, _PREFILTERED, native_codec,
-        depth, num_threads=opts.num_threads,
-    )
-    for i in np.flatnonzero(memcpy_flags):
-        payload = slots[i * slot : i * slot + sizes[i]]
-        payload[:] = filters.unfilter_bytes(payload, opts.type_size, opts.shuffle)
+    with span("tpbt.compress.codec"):
+        slots, slot, sizes, memcpy_flags = _nb.compress_slots(
+            filtered, block_size, opts.type_size, _PREFILTERED, native_codec,
+            depth, num_threads=opts.num_threads,
+        )
+    raw = np.flatnonzero(memcpy_flags)
+    if raw.size:
+        with span("tpbt.compress.host_filter"):
+            for i in raw:
+                payload = slots[i * slot : i * slot + sizes[i]]
+                payload[:] = filters.unfilter_bytes(payload, opts.type_size, opts.shuffle)
     return slots, slot, sizes, memcpy_flags
 
 
@@ -238,28 +252,30 @@ def decompress_array(data, dtype: torch.dtype, shape=None, device=None, sharding
     rank decodes the whole frame; no collective is made.  "rle" and
     "records" then take the transfer route, as in the JAX package.
     """
-    if sharding is not None:
-        from .dist import _sharded
+    with span("tpbt.decompress"):
+        if sharding is not None:
+            from .dist import _sharded
 
-        target = _sharded.sharding_device(sharding, device)
-    else:
-        target = filters.target_device(device, "decompress_array")
-    n = checked_decode_size(data, dtype)
-    out = None
-    if strategy == "device":
-        out = _decompress_array_devfilter(data, n, target)
-    elif strategy in ("rle", "records") and sharding is None:
-        out = _records.decompress_array_records(data, n, target)
-    if out is None:
-        out = host_decode(data, n)
-        if sharding is None:
-            out = out.to(target)
-    out = out.view(dtype)
-    if shape is not None:
-        out = out.reshape(shape)
-    if sharding is not None:
-        return _sharded.place(out, sharding, target)
-    return out
+            target = _sharded.sharding_device(sharding, device)
+        else:
+            target = filters.target_device(device, "decompress_array")
+        n = checked_decode_size(data, dtype)
+        out = None
+        if strategy == "device":
+            out = _decompress_array_devfilter(data, n, target)
+        elif strategy in ("rle", "records") and sharding is None:
+            out = _records.decompress_array_records(data, n, target)
+        if out is None:
+            out = host_decode(data, n)
+            if sharding is None:
+                with span("tpbt.decompress.h2d"):
+                    out = out.to(target)
+        out = out.view(dtype)
+        if shape is not None:
+            out = out.reshape(shape)
+        if sharding is not None:
+            return _sharded.place(out, sharding, target)
+        return out
 
 
 def checked_decode_size(data, dtype: torch.dtype) -> int:
@@ -277,8 +293,9 @@ def host_decode(data, n: int) -> torch.Tensor:
     """The host half of decompress_array's transfer route: the frame's
     ``n`` bytes decoded into a fresh CPU uint8 tensor
     (≙ tpu_blosc/device.py:1525-1535)."""
-    host = torch.empty(n, dtype=torch.uint8)
-    decompress_into(data, host.numpy())
+    with span("tpbt.decompress.codec"):
+        host = torch.empty(n, dtype=torch.uint8)
+        decompress_into(data, host.numpy())
     return host
 
 
@@ -304,15 +321,16 @@ def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int | None
     offsets, psizes, is_memcpy = payload_offsets(entries, offset)
     if int(offsets[-1] + psizes[-1]) > min(len(raw), header.nbytes_comp):
         return None
-    buf = torch.empty(n, dtype=torch.uint8)
-    if native_codec is None:
-        registry_blocks_decode(raw, header, entries, offset, buf.numpy())
-        return buf, entries
-    _nb.decompress_blocks(
-        np.frombuffer(raw, np.uint8), offsets, psizes, is_memcpy,
-        header.block_size, n, header.type_size, 0, native_codec,
-        out_addr=buf.data_ptr(),
-    )
+    with span("tpbt.decompress.codec"):
+        buf = torch.empty(n, dtype=torch.uint8)
+        if native_codec is None:
+            registry_blocks_decode(raw, header, entries, offset, buf.numpy())
+        else:
+            _nb.decompress_blocks(
+                np.frombuffer(raw, np.uint8), offsets, psizes, is_memcpy,
+                header.block_size, n, header.type_size, 0, native_codec,
+                out_addr=buf.data_ptr(),
+            )
     return buf, entries
 
 
@@ -342,14 +360,17 @@ def _decompress_array_devfilter(data, n: int, device: torch.device):
     body = nb_full * bs
     tail_raw = n > body and entries[nb_full][1]
     if n - body >= ts and not tail_raw:
-        host[body:] = torch.from_numpy(filters.unfilter_bytes(host[body:].numpy(), ts, mode))
-    stream = host.to(device)  # the one host-to-device copy
-    keep = [m for _, m in entries[:nb_full]]
-    keep_raw = torch.tensor(keep, dtype=torch.bool).to(device) if any(keep) else None
-    out = torch.empty_like(stream)
-    filters.unfilter_blocks(
-        stream[:body].view(nb_full, bs), ts, mode, keep_raw=keep_raw,
-        out=out[:body].view(nb_full, bs),
-    )
-    out[body:] = stream[body:]
+        with span("tpbt.decompress.host_filter"):
+            host[body:] = torch.from_numpy(filters.unfilter_bytes(host[body:].numpy(), ts, mode))
+    with span("tpbt.decompress.h2d"):
+        stream = host.to(device)  # the one host-to-device copy
+    with span("tpbt.decompress.unfilter"):
+        keep = [m for _, m in entries[:nb_full]]
+        keep_raw = torch.tensor(keep, dtype=torch.bool).to(device) if any(keep) else None
+        out = torch.empty_like(stream)
+        filters.unfilter_blocks(
+            stream[:body].view(nb_full, bs), ts, mode, keep_raw=keep_raw,
+            out=out[:body].view(nb_full, bs),
+        )
+        out[body:] = stream[body:]
     return out

@@ -1,5 +1,5 @@
-"""Observability: compression statistics, frame structure, and a profiler
-trace of a region.
+"""Observability: compression statistics, frame structure, a profiler
+trace of a region, and the spans the device round trip records into it.
 
 Counterpart: ``tpu_blosc/stats.py:20-151``.  ``CompressionStats``,
 ``FrameStats``, ``frame_stats`` and ``compress_with_stats`` are the JAX
@@ -7,7 +7,10 @@ package's host code, field for field.  ``trace`` keeps its contract (a
 dict that always gets ``elapsed_s``, and ``trace_dir`` only when a trace
 was written) with ``torch.profiler`` in place of ``jax.profiler``: CPU
 activity, and CUDA activity when a card is present, exported as a Chrome
-trace (``chrome://tracing`` or Perfetto read it).
+trace (``chrome://tracing`` or Perfetto read it).  ``span`` is the port's
+own: the stages of ``compress_array`` and ``decompress_array`` as named
+``record_function`` spans in that trace, recorded only while a profiler
+records.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .format import Header, Shuffle, parse_header
 from .options import Options
@@ -140,6 +144,30 @@ def trace(log_dir: str | None = None):
     the region finish inside it.  ``trace_dir`` and ``trace_file`` are set
     only when the trace was written; a profiler that fails to start leaves
     the region untraced, as in the JAX package.
+
+    The round trip's stages appear in it as ``record_function`` spans
+    (``"cat": "user_annotation"``, see ``span``), on the clock of the
+    host's operators and the card's runtime calls:
+
+    - ``tpbt.compress``: all of ``device.compress_array``; inside it
+      ``tpbt.compress.filter`` (the filter launches on the tensor's
+      device and the tail's copy), ``tpbt.compress.d2h`` (the copy to
+      host memory), ``tpbt.compress.host_filter`` (the tail's filter and
+      the unfilter of blocks stored raw), ``tpbt.compress.codec`` (the
+      codec; on the host route, ``compress_with_options``) and
+      ``tpbt.compress.frame`` (the frame's assembly);
+    - ``tpbt.decompress``: all of ``device.decompress_array``; inside it
+      ``tpbt.decompress.codec`` (the host decode),
+      ``tpbt.decompress.host_filter`` (the tail's unfilter),
+      ``tpbt.decompress.h2d`` (the copy to the target device) and
+      ``tpbt.decompress.unfilter`` (the unfilter launches and the tail's
+      copy on the target device).
+
+    A stage that does no work in a call records no span there (no tail,
+    no raw block, a single-block frame).  The time a top span covers
+    outside its stages is the entry point's own: options, header checks,
+    views.  Checkpoint writers and the distributed entry points, which
+    call the stages directly, record the stages without a top span.
     """
     record: dict = {}
     prof = None
@@ -180,6 +208,26 @@ def trace(log_dir: str | None = None):
             if os.path.exists(path):
                 record["trace_dir"] = log_dir
                 record["trace_file"] = path
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a ``record_function``
+    span while a torch profiler records (``trace``, or the caller's own
+    ``torch.profiler.profile``), and else does nothing.
+
+    The test is one read of torch's module-wide "a profiler is on" flag,
+    so without a profiler a span costs that read and the shared no-op
+    context, a fraction of a microsecond.  The flag is the same on every
+    thread, but the profiler records the threads it follows (the one that
+    started it): a stage on another thread enters ``record_function`` and
+    is not recorded.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _export(prof, path: str) -> None:
