@@ -1,0 +1,205 @@
+"""Page-locked, reused host buffers for the device round trip's bulk copies.
+
+compress_array's device route copies the filtered stream of a CUDA tensor
+into a page-locked host buffer, and decompress_array(strategy="device")
+decodes the codec stage into one before copying it to a CUDA target; both
+buffers come from torch's caching host allocator.  Every other caller, and
+every CPU tensor or target, keeps pageable buffers.
+
+The CPU cases check that decision, that the records and mesh decoders ask
+for pageable buffers even for a CUDA target, and that repeated calls keep
+writing tpu_blosc's frames.  The CUDA cases (``cuda`` in their names; they
+skip without a card) hold reuse to the CPU route: back-to-back and
+overlapping round trips, four threads compressing at once, and a
+checkpoint of same-size leaves.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
+
+import tpu_blosc as jb
+import tpu_blosc_torch as tb
+from tpu_blosc_torch import checkpoint
+from tpu_blosc_torch import device as tdev
+from tpu_blosc_torch.dist import mesh
+
+BLOCK = 65536
+
+
+class _Stop(Exception):
+    """Raised by a spy once it has seen what it asks about, before any
+    CUDA work that this machine cannot do."""
+
+
+def _signal(n: int, seed: int, raw_block: int | None = 1) -> np.ndarray:
+    """A smooth float32 array of ``n`` elements with one block of random
+    bytes (stored raw by the codec) at ``raw_block``."""
+    rng = np.random.default_rng(seed)
+    a = (1000 * np.sin(np.arange(n) / 300.0) + rng.normal(0, 1e-3, n)).astype(np.float32)
+    if raw_block is not None:
+        lo = raw_block * BLOCK
+        a.view(np.uint8)[lo:lo + BLOCK] = rng.integers(0, 256, BLOCK, dtype=np.uint8)
+    return a
+
+
+def _opts(codec: str, shuffle: str):
+    """The same options for both packages."""
+    kw = dict(type_size=4, block_size=BLOCK)
+    return (jb.Options(codec=jb.Codec[codec], shuffle=jb.Shuffle[shuffle], **kw),
+            tb.Options(codec=tb.Codec[codec], shuffle=tb.Shuffle[shuffle], **kw))
+
+
+def _buffer_spy(monkeypatch, stop: bool) -> list:
+    """Record the ``pinned`` flag of every host buffer device.py asks for;
+    with ``stop`` raise _Stop at the first one."""
+    seen: list = []
+    real = tdev._host_buffer
+
+    def spy(n, pinned):
+        seen.append(pinned)
+        if stop:
+            raise _Stop
+        return real(n, pinned)
+
+    monkeypatch.setattr(tdev, "_host_buffer", spy)
+    return seen
+
+
+@pytest.mark.parametrize("dev, pinned", [
+    (torch.device("cuda", 0), True),
+    (torch.device("cuda", 1), True),
+    (torch.device("cpu"), False),
+], ids=["cuda0", "cuda1", "cpu"])
+def test_copies_pin_on_a_cuda_device_only(dev, pinned):
+    assert tdev._pins(dev) is pinned
+
+
+@pytest.mark.parametrize("route, pinned", [("device", True), ("records", False),
+                                           ("mesh", False)])
+def test_only_the_device_decode_asks_for_a_pinned_buffer(monkeypatch, route, pinned):
+    """For a CUDA target the "device" strategy decodes into page-locked
+    memory; the records and mesh decoders, which keep the stream on the
+    host, decode into pageable memory."""
+    data = _signal(4 * BLOCK // 4, 3, raw_block=None)  # whole blocks: records takes it
+    _, to = _opts("LZ4", "SHUFFLE")
+    frame = tb.compress_array(torch.from_numpy(data), to)
+    seen = _buffer_spy(monkeypatch, stop=True)
+    target = torch.device("cuda", 0)
+    with pytest.raises(_Stop):
+        if route == "mesh":
+            mesh.decompress_chunked_mesh(frame, device=target)
+        else:
+            tb.decompress_array(frame, torch.float32, device=target, strategy=route)
+    assert seen == [pinned]
+
+
+@pytest.mark.parametrize("codec", ["LZ4", "ZSTD"])
+@pytest.mark.parametrize("shuffle", ["SHUFFLE", "BITSHUFFLE"])
+def test_repeated_cpu_round_trips_keep_tpu_blosc_frames(monkeypatch, codec, shuffle):
+    """A raw block and a ragged tail, three calls in a row: every frame is
+    tpu_blosc's, every decode gives the data back, and no buffer of a CPU
+    tensor or target is pinned."""
+    data = _signal(4 * BLOCK // 4 + 4465, 7)  # 4 blocks, then a 17,860-byte tail
+    jo, to = _opts(codec, shuffle)
+    want = jb.compress_with_options(data.tobytes(), jo)
+    seen = _buffer_spy(monkeypatch, stop=False)
+    x = torch.from_numpy(data)
+    for _ in range(3):
+        frame = tb.compress_array(x, to)
+        assert frame == want
+        y = tb.decompress_array(frame, torch.float32, device="cpu", strategy="device")
+        assert y.numpy().tobytes() == data.tobytes()
+    entries, _ = tb.chunk.parse_block_table(want, tb.format.parse_header(want))
+    assert [m for _, m in entries] == [False, True, False, False, False]
+    assert seen == [False, False, False]
+
+
+# ---------------------------------------------------------------- on the card
+
+CUDA_N = 64 * BLOCK // 4 + 4465  # 64 blocks of 64 KiB and a tail
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: page-locked buffers need one")
+    return torch.device("cuda", 0)
+
+
+def _same(y: torch.Tensor, x: torch.Tensor) -> bool:
+    """Byte for byte: the raw blocks' random bytes hold NaNs."""
+    return y.shape == x.shape and torch.equal(y.view(torch.uint8), x.view(torch.uint8))
+
+
+def _cuda_opts(codec: str = "ZSTD") -> tb.Options:
+    return tb.Options(codec=tb.Codec[codec], level=5, shuffle=tb.Shuffle.SHUFFLE,
+                      type_size=4, block_size=BLOCK)
+
+
+def test_cuda_stage_buffers_are_pinned(monkeypatch, card):
+    x = torch.from_numpy(_signal(CUDA_N, 11)).to(card)
+    staged = tdev._compress_array_stage1(x, _cuda_opts(), "transfer")
+    assert torch.from_numpy(staged[0]).is_pinned()
+    frame = tdev._compress_array_stage2(staged)
+    made = []
+    real = tdev._host_buffer
+    monkeypatch.setattr(tdev, "_host_buffer",
+                        lambda n, pinned: made.append(real(n, pinned)) or made[-1])
+    y = tb.decompress_array(frame, torch.float32, device=card, strategy="device")
+    assert [b.is_pinned() for b in made] == [True]
+    assert _same(y, x)
+
+
+@pytest.mark.parametrize("codec", ["LZ4", "ZSTD"])
+def test_cuda_back_to_back_round_trips_of_one_size(card, codec):
+    """Two tensors of one size, in turns: each frame is the CPU route's, and
+    each decode gives its tensor back, also when B's decode starts while
+    A's copy waits behind a busy stream."""
+    a, b = _signal(CUDA_N, 21), _signal(CUDA_N, 22, raw_block=5)
+    opts = _cuda_opts(codec)
+    want = {k: tb.compress_array(torch.from_numpy(v), opts) for k, v in (("a", a), ("b", b))}
+    xa, xb = torch.from_numpy(a).to(card), torch.from_numpy(b).to(card)
+    for _ in range(3):
+        fa = tb.compress_array(xa, opts)
+        fb = tb.compress_array(xb, opts)
+        assert fa == want["a"] and fb == want["b"]
+        ys = []
+        for frame in (fb, fa, fb, fa):
+            torch.cuda._sleep(20_000_000)  # hold the stream: the copy waits
+            ys.append(tb.decompress_array(frame, torch.float32, device=card,
+                                          strategy="device"))
+        torch.cuda.synchronize(card)
+        for y, x in zip(ys, (xb, xa, xb, xa)):
+            assert _same(y, x)
+
+
+def test_cuda_four_threads_compress_at_once(card):
+    arrays = [_signal(CUDA_N, 30 + i, raw_block=i % 4) for i in range(8)]
+    opts = _cuda_opts("LZ4")
+    want = [tb.compress_array(torch.from_numpy(a), opts) for a in arrays]
+    xs = [torch.from_numpy(a).to(card) for a in arrays]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(2):
+            got = list(pool.map(lambda x: tb.compress_array(x, opts), xs))
+            assert got == want
+
+
+def test_cuda_checkpoint_of_same_size_leaves_is_the_cpu_file(card, tmp_path):
+    leaves = {f"w{i}": torch.from_numpy(_signal(CUDA_N, 40 + i, raw_block=i)) for i in range(4)}
+    opts = _cuda_opts("LZ4")
+    checkpoint.save_pytree(tmp_path / "cpu.tpbs", leaves, opts)
+    checkpoint.save_pytree(tmp_path / "cuda.tpbs", {k: v.to(card) for k, v in leaves.items()},
+                           opts)
+    with open(tmp_path / "cpu.tpbs", "rb") as f1, open(tmp_path / "cuda.tpbs", "rb") as f2:
+        assert f1.read() == f2.read()
+    back = checkpoint.load_pytree(os.fspath(tmp_path / "cuda.tpbs"), device=card,
+                                  strategy="device")
+    for k, v in leaves.items():
+        assert _same(back[k].cpu(), v)
