@@ -1,17 +1,19 @@
 """Page-locked, reused host buffers for the device round trip's bulk copies.
 
 compress_array's device route copies the filtered stream of a CUDA tensor
-into a page-locked host buffer, and decompress_array(strategy="device")
-decodes the codec stage into one before copying it to a CUDA target; both
-buffers come from torch's caching host allocator.  Every other caller, and
-every CPU tensor or target, keeps pageable buffers.
+into a page-locked host buffer, decompress_array(strategy="device")
+decodes the codec stage into one before copying it to a CUDA target, and
+load_pytree's prefetch pipeline decodes each leaf into one before copying
+it to a CUDA target; these buffers come from torch's caching host
+allocator.  Every other caller, and every CPU tensor or target, keeps
+pageable buffers.
 
 The CPU cases check that decision, that the records and mesh decoders ask
 for pageable buffers even for a CUDA target, and that repeated calls keep
 writing tpu_blosc's frames.  The CUDA cases (``cuda`` in their names; they
 skip without a card) hold reuse to the CPU route: back-to-back and
-overlapping round trips, four threads compressing at once, and a
-checkpoint of same-size leaves.
+overlapping round trips, four threads compressing at once, a checkpoint
+of same-size leaves, and checkpoint loads behind a busy stream.
 """
 
 from __future__ import annotations
@@ -98,6 +100,33 @@ def test_only_the_device_decode_asks_for_a_pinned_buffer(monkeypatch, route, pin
         else:
             tb.decompress_array(frame, torch.float32, device=target, strategy=route)
     assert seen == [pinned]
+
+
+def _tree() -> dict:
+    """Leaves of three sizes, two of them of one size, one a multi-block
+    frame."""
+    return {"a": torch.from_numpy(_signal(CUDA_N, 50)), "b": torch.arange(1000),
+            "c": [torch.from_numpy(_signal(5000, 51, raw_block=None)),
+                  torch.from_numpy(_signal(5000, 52, raw_block=None))], "step": 7}
+
+
+@pytest.mark.parametrize("target, pinned", [(torch.device("cuda", 0), True),
+                                            (torch.device("cpu"), False)],
+                         ids=["cuda", "cpu"])
+def test_a_checkpoint_load_pins_its_leaves_for_a_cuda_target(monkeypatch, tmp_path, target,
+                                                             pinned):
+    """load_pytree's pipeline decodes each leaf into page-locked memory for
+    a CUDA target, into pageable memory for a CPU one."""
+    path = tmp_path / "t.tpbs"
+    checkpoint.save_pytree(path, _tree())
+    seen = _buffer_spy(monkeypatch, stop=pinned)
+    if pinned:
+        with pytest.raises(_Stop):
+            checkpoint.load_pytree(path, device=target)
+        assert seen == [True]
+    else:
+        back = checkpoint.load_pytree(path, device=target)
+        assert _same(back["a"], _tree()["a"]) and seen == [False] * 4
 
 
 @pytest.mark.parametrize("codec", ["LZ4", "ZSTD"])
@@ -203,3 +232,28 @@ def test_cuda_checkpoint_of_same_size_leaves_is_the_cpu_file(card, tmp_path):
                                   strategy="device")
     for k, v in leaves.items():
         assert _same(back[k].cpu(), v)
+
+
+def test_cuda_checkpoint_loads_back_to_back_behind_a_busy_stream(monkeypatch, card,
+                                                                  tmp_path):
+    """Three loads onto the card, each started while the stream is held, so
+    their copies queue behind it: every leaf comes back as saved, from
+    page-locked buffers that the next load may be handed only once the
+    copies out of them have run."""
+    path = tmp_path / "t.tpbs"
+    tree = _tree()
+    checkpoint.save_pytree(path, tree)
+    made = []
+    real = tdev._host_buffer
+    monkeypatch.setattr(tdev, "_host_buffer",
+                        lambda n, pinned: made.append(real(n, pinned)) or made[-1])
+    loads = []
+    for _ in range(3):
+        torch.cuda._sleep(20_000_000)  # hold the stream: the copies wait
+        loads.append(checkpoint.load_pytree(path, device=True))
+    torch.cuda.synchronize(card)
+    assert made and all(b.is_pinned() for b in made)
+    for back in loads:
+        assert back["step"] == 7 and back["a"].device == card
+        assert _same(back["a"].cpu(), tree["a"]) and torch.equal(back["b"].cpu(), tree["b"])
+        assert all(_same(y.cpu(), x) for y, x in zip(back["c"], tree["c"]))

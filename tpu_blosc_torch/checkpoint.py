@@ -25,7 +25,10 @@ k's host codec and file write (_compress_array_stage2), the two halves of
 compress_array, so the frames are compress_array's by construction.  CPU
 tensors and NumPy arrays are "host" records, compressed in batches of up
 to _BATCH_WINDOW_BYTES.  A load onto a device decodes leaf k+1 on a
-worker thread while this thread copies leaf k to the device.
+worker thread while this thread copies leaf k to the device; for a CUDA
+device each leaf is decoded into a page-locked buffer of torch's caching
+host allocator (device._host_buffer) and its copy is queued on the
+stream without waiting for it.
 
 A DTensor leaf of save_pytree is gathered (every rank of its mesh calls
 save_pytree) and written whole by process 0, as the JAX package writes a
@@ -55,13 +58,16 @@ from .api import compress_batch_with_options
 from .device import (
     _compress_array_stage1,
     _compress_array_stage2,
+    _pins,
     checked_decode_size,
     host_decode,
     tensor_bytes,
 )
 from .errors import InvalidDataError
 from .filters import load_target
+from .format import FLAG_SPLIT, FORMAT_VERSION
 from .options import Options
+from .stats import span
 from .stream import DICT_MAGIC, StreamReader, StreamWriter, _iter_prefetch
 
 _MANIFEST_VERSION = 1
@@ -69,6 +75,16 @@ _MANIFEST_VERSION = 1
 # Host leaves compress in batches of about this many bytes: one native
 # call per element size in a window, peak memory about a window
 _BATCH_WINDOW_BYTES = 64 * 1024 * 1024
+
+# what load_pytree's pipeline (a device load, strategy "transfer" or
+# "auto") restored since the last reset_restored(): leaves, their tensor
+# bytes, and the leaves whose record is a multi-block frame
+restored = {"leaves": 0, "bytes": 0, "multi_block_leaves": 0}
+
+
+def reset_restored() -> None:
+    for name in restored:
+        restored[name] = 0
 
 
 def _leaf_dtype(obj) -> tuple[torch.dtype, str]:
@@ -289,6 +305,23 @@ def _read_leaf(r: StreamReader, i: int, dtype: torch.dtype, shape: tuple) -> tor
     return torch.frombuffer(buf, dtype=torch.uint8).view(dtype).reshape(shape)
 
 
+def _open_checkpoint(path) -> tuple[StreamReader, dict, dict | None]:
+    """The open reader of a checkpoint file, its manifest and its leaf
+    specs (``_collect_leaf_specs``); the reader is closed if either is
+    refused."""
+    r = StreamReader(path)
+    try:
+        meta = _read_manifest(r)
+        if meta["leaves"] != len(r) - 1:
+            raise InvalidDataError(
+                "blosc: invalid compressed data: checkpoint leaf count mismatch"
+            )
+        return r, meta, _collect_leaf_specs(meta["tree"], meta["leaves"])
+    except BaseException:
+        r.close()
+        raise
+
+
 def load_pytree(path, device=False, strategy: str = "transfer"):
     """Read a checkpoint back: CPU tensors, or with ``device=True`` (the
     current CUDA device) or a device, tensors there.
@@ -297,65 +330,84 @@ def load_pytree(path, device=False, strategy: str = "transfer"):
     "transfer" and "auto" decode on the host with a prefetch pipeline and
     copy each leaf once; "device", "rle" and "records" decode each leaf
     through decompress_array's strategy of that name.
+
+    While a profiler records, the call is the span ``tpbt.load_pytree``
+    (``stats.span``), with the stages ``tpbt.load_pytree.manifest``
+    (opening the file, its manifest and the leaf specs) and, on the
+    pipeline, ``tpbt.load_pytree.wait`` (this thread waiting for the
+    worker's next decoded leaf) and ``tpbt.load_pytree.h2d`` (a leaf's copy
+    to the target device), all on the calling thread.  The pipeline counts
+    what it restores in ``restored``.
     """
-    target = load_target(device, "load_pytree")
-    with StreamReader(path) as r:
-        meta = _read_manifest(r)
-        if meta["leaves"] != len(r) - 1:
-            raise InvalidDataError(
-                "blosc: invalid compressed data: checkpoint leaf count mismatch"
-            )
-        specs = _collect_leaf_specs(meta["tree"], meta["leaves"])
-        ready: dict[int, torch.Tensor] = {}
-        dev_gen = None
-        if target is not None and strategy in ("transfer", "auto") and specs is not None:
-            def stage_host(i: int):
-                dtype, shape = specs[i]
-                frame = r.read_frame(i + 1)
-                if frame[:4] == DICT_MAGIC:
-                    host = torch.frombuffer(bytearray(r._decode_dict_record(frame)),
-                                            dtype=torch.uint8)
-                else:
-                    host = host_decode(frame, checked_decode_size(frame, dtype))
-                return i, host.view(dtype).reshape(shape)
+    with span("tpbt.load_pytree"):
+        target = load_target(device, "load_pytree")
+        with span("tpbt.load_pytree.manifest"):
+            r, meta, specs = _open_checkpoint(path)
+        with r:
+            return _load_tree(r, meta, specs, target, strategy)
 
-            dev_gen = _iter_prefetch(stage_host, meta["leaves"], prefetch=2)
-        elif target is None and specs is not None:
-            # decode straight into tensors allocated from the manifest, for
-            # the leaves whose size agrees with their record's own header
-            # (a forged manifest must not drive the allocations)
-            for i, (dtype, shape) in specs.items():
-                nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
-                try:
-                    if r.peek_size(i + 1) == nbytes:
-                        ready[i] = torch.empty(shape, dtype=dtype)
-                except (InvalidDataError, MemoryError, RuntimeError):
-                    continue  # the per-leaf path raises the typed error
-            order = sorted(ready)
-            counts = r.read_many_into(
-                [i + 1 for i in order], [tensor_bytes(ready[i]).numpy() for i in order]
-            )
-            for i, c in zip(order, counts):
-                if c != ready[i].numel() * ready[i].element_size():
-                    del ready[i]
 
-        produced: dict[int, torch.Tensor] = {}
+def _load_tree(r: StreamReader, meta: dict, specs: dict | None, target, strategy: str):
+    """load_pytree's body over an open reader."""
+    ready: dict[int, torch.Tensor] = {}
+    dev_gen = None
+    pinned = target is not None and _pins(target)
+    if target is not None and strategy in ("transfer", "auto") and specs is not None:
+        def stage_host(i: int):
+            dtype, shape = specs[i]
+            frame = r.read_frame(i + 1)
+            if frame[:4] == DICT_MAGIC:
+                host = torch.frombuffer(bytearray(r._decode_dict_record(frame)),
+                                        dtype=torch.uint8)
+            else:
+                host = host_decode(frame, checked_decode_size(frame, dtype), pinned)
+            split = frame[0] == FORMAT_VERSION and bool(frame[2] & FLAG_SPLIT)
+            return i, host.view(dtype).reshape(shape), split
 
-        def fetch(i: int, dtype: torch.dtype, shape: tuple):
-            if dev_gen is not None:
-                # leaves arrive in index order; a manifest may walk them in
-                # another, so buffer until leaf i is there
-                while i not in produced:
-                    k, host = next(dev_gen)
-                    produced[k] = host
-                return produced.pop(i).to(target)
-            if target is not None:
-                return r.read_array(i + 1, dtype, shape=shape, device=target,
-                                    strategy=strategy)
-            got = ready.get(i)
-            return got if got is not None else _read_leaf(r, i + 1, dtype, shape)
+        dev_gen = _iter_prefetch(stage_host, meta["leaves"], prefetch=2)
+    elif target is None and specs is not None:
+        # decode straight into tensors allocated from the manifest, for
+        # the leaves whose size agrees with their record's own header
+        # (a forged manifest must not drive the allocations)
+        for i, (dtype, shape) in specs.items():
+            nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+            try:
+                if r.peek_size(i + 1) == nbytes:
+                    ready[i] = torch.empty(shape, dtype=dtype)
+            except (InvalidDataError, MemoryError, RuntimeError):
+                continue  # the per-leaf path raises the typed error
+        order = sorted(ready)
+        counts = r.read_many_into(
+            [i + 1 for i in order], [tensor_bytes(ready[i]).numpy() for i in order]
+        )
+        for i, c in zip(order, counts):
+            if c != ready[i].numel() * ready[i].element_size():
+                del ready[i]
 
-        return _decode(meta["tree"], fetch, target)
+    produced: dict[int, tuple[torch.Tensor, bool]] = {}
+
+    def fetch(i: int, dtype: torch.dtype, shape: tuple):
+        if dev_gen is not None:
+            # leaves arrive in index order; a manifest may walk them in
+            # another, so buffer until leaf i is there
+            while i not in produced:
+                with span("tpbt.load_pytree.wait"):
+                    k, host, split = next(dev_gen)
+                produced[k] = host, split
+            host, split = produced.pop(i)
+            with span("tpbt.load_pytree.h2d"):
+                out = host.to(target, non_blocking=pinned)
+            restored["leaves"] += 1
+            restored["bytes"] += host.nbytes
+            restored["multi_block_leaves"] += split
+            return out
+        if target is not None:
+            return r.read_array(i + 1, dtype, shape=shape, device=target,
+                                strategy=strategy)
+        got = ready.get(i)
+        return got if got is not None else _read_leaf(r, i + 1, dtype, shape)
+
+    return _decode(meta["tree"], fetch, target)
 
 
 def _walk_manifest(tree: dict, key_path: str) -> dict:

@@ -315,12 +315,14 @@ def checked_decode_size(data, dtype: torch.dtype) -> int:
     return n
 
 
-def host_decode(data, n: int) -> torch.Tensor:
+def host_decode(data, n: int, pinned: bool = False) -> torch.Tensor:
     """The host half of decompress_array's transfer route: the frame's
     ``n`` bytes decoded into a fresh CPU uint8 tensor
-    (≙ tpu_blosc/device.py:1525-1535)."""
+    (≙ tpu_blosc/device.py:1525-1535); ``pinned`` decodes into a
+    page-locked buffer (``_host_buffer``), for a caller that copies it to
+    a CUDA device."""
     with span("tpbt.decompress.codec"):
-        host = torch.empty(n, dtype=torch.uint8)
+        host = _host_buffer(n, pinned)
         decompress_into(data, host.numpy())
     return host
 

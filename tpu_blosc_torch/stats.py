@@ -163,6 +163,15 @@ def trace(log_dir: str | None = None):
       ``tpbt.decompress.unfilter`` (the unfilter launches and the tail's
       copy on the target device).
 
+    - ``tpbt.load_pytree``: all of ``checkpoint.load_pytree``; inside it
+      ``tpbt.load_pytree.manifest`` (opening the file, its manifest and
+      the leaf specs) and, on a device load's prefetch pipeline, one
+      ``tpbt.load_pytree.wait`` around each wait for the worker thread's
+      next decoded leaf and one ``tpbt.load_pytree.h2d`` around each
+      leaf's copy to the target device.  The worker's own host decode
+      (``tpbt.decompress.codec``) runs on a thread the profiler does not
+      follow, so the waits are where its time shows.
+
     A stage that does no work in a call records no span there (no tail,
     no raw block, a single-block frame).  The time a top span covers
     outside its stages is the entry point's own: options, header checks,
