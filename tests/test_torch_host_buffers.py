@@ -13,7 +13,9 @@ for pageable buffers even for a CUDA target, and that repeated calls keep
 writing tpu_blosc's frames.  The CUDA cases (``cuda`` in their names; they
 skip without a card) hold reuse to the CPU route: back-to-back and
 overlapping round trips, four threads compressing at once, a checkpoint
-of same-size leaves, and checkpoint loads behind a busy stream.
+of same-size leaves, and checkpoint loads behind a busy stream, one of
+them of many windows, whose slabs must not be written again before the
+copies out of them have run.
 """
 
 from __future__ import annotations
@@ -115,8 +117,9 @@ def _tree() -> dict:
                          ids=["cuda", "cpu"])
 def test_a_checkpoint_load_pins_its_leaves_for_a_cuda_target(monkeypatch, tmp_path, target,
                                                              pinned):
-    """load_pytree's pipeline decodes each leaf into page-locked memory for
-    a CUDA target, into pageable memory for a CPU one."""
+    """load_pytree's pipeline reads a window of leaves into one buffer and
+    decodes them into another, both page-locked for a CUDA target, both
+    pageable for a CPU one (here the four leaves make one window)."""
     path = tmp_path / "t.tpbs"
     checkpoint.save_pytree(path, _tree())
     seen = _buffer_spy(monkeypatch, stop=pinned)
@@ -126,7 +129,7 @@ def test_a_checkpoint_load_pins_its_leaves_for_a_cuda_target(monkeypatch, tmp_pa
         assert seen == [True]
     else:
         back = checkpoint.load_pytree(path, device=target)
-        assert _same(back["a"], _tree()["a"]) and seen == [False] * 4
+        assert _same(back["a"], _tree()["a"]) and seen == [False] * 2
 
 
 @pytest.mark.parametrize("codec", ["LZ4", "ZSTD"])
@@ -257,3 +260,39 @@ def test_cuda_checkpoint_loads_back_to_back_behind_a_busy_stream(monkeypatch, ca
         assert back["step"] == 7 and back["a"].device == card
         assert _same(back["a"].cpu(), tree["a"]) and torch.equal(back["b"].cpu(), tree["b"])
         assert all(_same(y.cpu(), x) for y, x in zip(back["c"], tree["c"]))
+
+
+def test_cuda_a_load_of_many_windows_behind_a_held_stream_rewrites_no_slab(
+        monkeypatch, card, tmp_path):
+    """Windows of 512 KiB: 48 multi-block leaves, of whole blocks and of a
+    short last block, take 12 windows a load.  Three loads, each
+    started while the stream is held, so that the copies out of every slab
+    wait behind it while the worker goes on reading and decoding the next
+    windows: every leaf comes back as saved, so no slab (nor a read buffer,
+    which only the worker reads) was written again before its copies ran.
+    A load onto the CPU asks for pageable buffers only."""
+    monkeypatch.setattr(checkpoint, "_BATCH_WINDOW_BYTES", 512 << 10)
+    tree = {f"w{i}": torch.from_numpy(_signal(2 * BLOCK // 4 if i % 3 else 20_000, 60 + i,
+                                              raw_block=None))
+            for i in range(48)}
+    path = tmp_path / "windows.tpbs"
+    checkpoint.save_pytree(path, tree, _cuda_opts("LZ4"))
+    made = []
+    real = tdev._host_buffer
+    monkeypatch.setattr(tdev, "_host_buffer",
+                        lambda n, pinned: made.append(real(n, pinned)) or made[-1])
+    loads = []
+    checkpoint.reset_restored()
+    for _ in range(3):
+        torch.cuda._sleep(1_000_000_000)  # hold the stream: the copies wait
+        loads.append(checkpoint.load_pytree(path, device=True))
+    torch.cuda.synchronize(card)
+    assert checkpoint.restored["windows"] == 3 * 12
+    assert checkpoint.restored["multi_block_leaves"] == 3 * 48
+    assert made and all(b.is_pinned() for b in made)
+    for back in loads:
+        assert all(back[k].device == card and _same(back[k].cpu(), v) for k, v in tree.items())
+    made.clear()
+    back = checkpoint.load_pytree(path, device="cpu")
+    assert made and not any(b.is_pinned() for b in made)
+    assert all(_same(back[k], v) for k, v in tree.items())

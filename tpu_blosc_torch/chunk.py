@@ -313,15 +313,13 @@ def payload_offsets(entries: list[tuple[int, bool]], offset: int):
     return offsets, psizes, is_memcpy
 
 
-def decompress_chunked_native(raw: bytes, header: Header,
-                              entries: list[tuple[int, bool]], offset: int,
-                              type_size: int, native_codec: int,
-                              out_addr: int | None = None, lo_b: int = 0,
-                              hi_b: int | None = None) -> bytes | int:
-    """Native decode of blocks [lo_b, hi_b] (default: every block); with
-    ``out_addr`` the bytes go there and the byte count is returned.  A
-    whole-frame decode validates the block layout here; a sub-range caller
-    (decompress_block_run) validates it once at its entry point."""
+def checked_payloads(raw, header: Header, entries: list[tuple[int, bool]],
+                     offset: int, lo_b: int = 0, hi_b: int | None = None):
+    """(offsets, sizes, is_memcpy, covered bytes) of blocks [lo_b, hi_b]
+    (default: every block) for the native block decoder, the payloads
+    checked against the frame and the blocks stored raw against their
+    size.  The whole frame's block layout is validated here; a sub-range
+    caller (decompress_block_run) validates it once at its entry point."""
     n = header.nbytes_orig
     block_size = header.block_size
     if hi_b is None:
@@ -341,10 +339,23 @@ def decompress_chunked_native(raw: bytes, header: Header,
                 f"blosc: decompressed size mismatch in memcpy block {lo_b + k}"
             )
     cover = min(n, (hi_b + 1) * block_size) - lo_b * block_size
+    return offsets, psizes, is_memcpy, cover
+
+
+def decompress_chunked_native(raw: bytes, header: Header,
+                              entries: list[tuple[int, bool]], offset: int,
+                              type_size: int, native_codec: int,
+                              out_addr: int | None = None, lo_b: int = 0,
+                              hi_b: int | None = None) -> bytes | int:
+    """Native decode of blocks [lo_b, hi_b] (default: every block); with
+    ``out_addr`` the bytes go there and the byte count is returned
+    (checked_payloads validates them)."""
+    offsets, psizes, is_memcpy, cover = checked_payloads(raw, header, entries, offset,
+                                                         lo_b, hi_b)
     try:
         return _native.decompress_blocks(
             np.frombuffer(raw, dtype=np.uint8), offsets, psizes, is_memcpy,
-            block_size, cover, type_size, int(header.shuffle_mode), native_codec,
+            header.block_size, cover, type_size, int(header.shuffle_mode), native_codec,
             out_addr=out_addr,
         )
     except DecompressionFailedError:

@@ -166,11 +166,11 @@ def trace(log_dir: str | None = None):
     - ``tpbt.load_pytree``: all of ``checkpoint.load_pytree``; inside it
       ``tpbt.load_pytree.manifest`` (opening the file, its manifest and
       the leaf specs) and, on a device load's prefetch pipeline, one
-      ``tpbt.load_pytree.wait`` around each wait for the worker thread's
-      next decoded leaf and one ``tpbt.load_pytree.h2d`` around each
-      leaf's copy to the target device.  The worker's own host decode
-      (``tpbt.decompress.codec``) runs on a thread the profiler does not
-      follow, so the waits are where its time shows.
+      ``tpbt.load_pytree.wait`` around each wait for the worker threads'
+      next decoded window of leaves and one ``tpbt.load_pytree.h2d``
+      around each leaf's copy to the target device.  The workers' own read
+      and decode run on threads the profiler does not follow, so the
+      waits are where their time shows.
 
     A stage that does no work in a call records no span there (no tail,
     no raw block, a single-block frame).  The time a top span covers

@@ -36,7 +36,9 @@ from __future__ import annotations
 import os
 import struct
 import threading
+import zlib
 
+import numpy as np
 import torch
 
 from .errors import (
@@ -457,6 +459,51 @@ class StreamReader:
                     "checksum mismatch"
                 )
         return frame
+
+    def read_frames(self, lo: int, hi: int, alloc):
+        """Records lo..hi-1 with one read: ``(buffer, frames, error)``.
+
+        ``alloc(nbytes)`` gives a writable uint8 ndarray of at least
+        ``nbytes``, the bytes from record lo's offset to record hi's (to
+        the end of the data after the last record); one positioned read
+        fills it.  ``frames`` are the records' frames in order, views of
+        it, each checked as read_frame checks it, up to the first that
+        fails; ``error`` is that record's error (read_frame's), or None,
+        for the caller to raise once it is done with the frames before
+        it.  A record that does not lie whole in the bytes read (a forged
+        length field, a file cut short since it was opened) goes through
+        read_frame itself, which raises or returns its bytes.
+        """
+        if not 0 <= lo <= hi <= len(self._offsets):
+            raise IndexError(f"records [{lo}, {hi}) out of range ({len(self._offsets)})")
+        start = self._offsets[lo] if lo < hi else self._data_end
+        end = self._offsets[hi] if hi < len(self._offsets) else self._data_end
+        nbytes = max(min(end, self._data_end) - start, 0)
+        buf = alloc(nbytes)
+        with self._lock:
+            self._f.seek(start)
+            got = self._f.readinto(memoryview(buf)[:nbytes]) if nbytes else 0
+        extra = 4 if self._crc else 0
+        frames = []
+        try:
+            for i in range(lo, hi):
+                pos = self._offsets[i] - start
+                if pos + 8 <= got:
+                    (flen,) = struct.unpack_from("<Q", buf, pos)
+                    if flen + extra <= got - pos - 8:
+                        frame = buf[pos + 8 : pos + 8 + flen]
+                        if self._crc and zlib.crc32(frame) != struct.unpack_from(
+                                "<I", buf, pos + 8 + flen)[0]:
+                            raise InvalidDataError(
+                                f"blosc: invalid compressed data: record {i} "
+                                "checksum mismatch"
+                            )
+                        frames.append(frame)
+                        continue
+                frames.append(np.frombuffer(self.read_frame(i), dtype=np.uint8))
+        except Exception as exc:  # the caller's to raise, after the frames before it
+            return buf, frames, exc
+        return buf, frames, None
 
     def read(self, i: int) -> bytes:
         """Decompress the i-th record to bytes."""
