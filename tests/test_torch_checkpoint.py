@@ -129,6 +129,24 @@ def test_load_onto_a_device_equals_the_host_load(tmp_path):
     _assert_same(tc.load_pytree(path, device=torch.device("cpu"), strategy="device"), state)
 
 
+def test_a_host_load_takes_the_windows_of_a_device_load(tmp_path, monkeypatch):
+    """``load_pytree(path)`` decodes its leaves in the pipeline's windows,
+    as a device load does, and never in StreamReader.read_many_into."""
+    path = tmp_path / "h.ckpt"
+    state = _state()
+    jc.save_pytree(path, state)
+
+    def refused(self, indices, outs):
+        raise AssertionError("a checkpoint load called read_many_into")
+
+    monkeypatch.setattr(StreamReader, "read_many_into", refused)
+    tc.reset_restored()
+    _assert_same(tc.load_pytree(path), state)
+    with StreamReader(path) as r:
+        records = len(r)
+    assert tc.restored["windows"] > 0 and tc.restored["leaves"] == records - 1
+
+
 def test_device_true_needs_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=True is valid")

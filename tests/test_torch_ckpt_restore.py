@@ -7,11 +7,12 @@ plain reader ``benchmark/reference/checkpoint_file.py`` reads it from the
 same file, and that reader refuses a damaged file.  At the published sizes
 the generator's shapes are counted without allocating.
 
-The pipeline decodes its leaves in windows (``checkpoint._decode_window``):
-a tree that mixes every kind of record in one window comes back as saved
-and as the host load reads it, in the number of windows its sizes give,
-and a damaged record raises the error through a window that it raises
-through ``StreamReader.read_frame``.
+The pipeline decodes its leaves in windows (``stream._decode_window``),
+onto the host as onto a device: a tree that mixes every kind of record in
+one window comes back as saved and as tpu_blosc's ``load_pytree`` reads
+the same file, in the number of windows its sizes give, and a damaged
+record raises the error through a window that it raises through
+``StreamReader.read_frame``.
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ import time
 
 import pytest
 import torch
+from torch_jax_native import jax_native_whole  # noqa: F401  (an autouse fixture)
 
 import tpu_blosc_torch as tb
 from benchmark import harness
-from tpu_blosc_torch import checkpoint
+from tpu_blosc import checkpoint as jc
+from tpu_blosc_torch import checkpoint, dtypes, stream
 from tpu_blosc_torch.native import backend as native
 from tpu_blosc_torch.stream import StreamWriter
 
@@ -289,42 +292,47 @@ WINDOW_CASES = {
 
 @pytest.mark.parametrize("case", list(WINDOW_CASES))
 def test_a_windowed_restore_equals_the_state_and_the_host_load(tmp_path, monkeypatch, case):
-    """``load_pytree(device="cpu")`` decodes windows of 256 KiB here: every
-    leaf comes back with its dtype and shape, byte for byte the state and
-    the host load (``device=False``, no windows), in the windows its sizes
+    """``load_pytree`` onto the host (``device=False``) and onto ``"cpu"``
+    decodes windows of 256 KiB here: every leaf comes back with its dtype
+    and shape, in storage of its own, byte for byte the state and
+    tpu_blosc's ``load_pytree`` of the same file, in the windows its sizes
     give; multi-block leaves share native block calls."""
     kw = dict(WINDOW_CASES[case])
     if kw.get("dictionary"):
         pytest.importorskip("zstandard")
     window = kw.pop("window", 256 << 10)
-    monkeypatch.setattr(checkpoint, "_BATCH_WINDOW_BYTES", window)
+    monkeypatch.setattr(stream, "_BATCH_WINDOW_BYTES", window)
     leaves = _mixed_leaves()
     path = tmp_path / "mixed.tpbs"
     order = _write_checkpoint(path, leaves, **kw)
+    theirs = jc.load_pytree(path)
     calls = []
     real = native.decompress_blocks
     monkeypatch.setattr(native, "decompress_blocks",
                         lambda *a, **k: calls.append(a[4:6]) or real(*a, **k))
-    checkpoint.reset_restored()
-    got = tb.load_pytree(path, device=torch.device("cpu"))
-    windowed_calls = list(calls)
-    host = tb.load_pytree(path)
-    assert set(got) == set(host) == {n for n, _, _ in leaves}
-    for name, want, _ in leaves:
-        for have in (got[name], host[name]):
-            assert have.dtype == want.dtype and have.shape == want.shape
-            assert (_u8(have) == _u8(want)).all(), name
-        assert got[name].untyped_storage().nbytes() == want.nbytes  # a leaf of its own
     sizes = [leaves[k][1].nbytes for k in order]
     multi = sum(o.block_size > 0 for _, _, o in leaves)
-    assert checkpoint.restored == {"leaves": len(leaves), "bytes": sum(sizes),
-                                   "multi_block_leaves": multi,
-                                   "windows": _windows_of(sizes, window)}
-    assert checkpoint.restored["windows"] > (case != "one_window")
-    if native.available():  # leaves of one key share a call
-        assert 0 < len(windowed_calls) < multi
-    else:  # the route without a native build decodes through decompress_into
-        assert not windowed_calls
+    for device in (False, torch.device("cpu")):
+        calls.clear()
+        checkpoint.reset_restored()
+        got = tb.load_pytree(path, device=device)
+        assert set(got) == set(theirs) == {n for n, _, _ in leaves}
+        for name, want, _ in leaves:
+            have, jax_leaf = got[name], theirs[name]
+            assert have.dtype == want.dtype and have.shape == want.shape
+            assert jax_leaf.dtype.name == dtypes.manifest_name(want.dtype)
+            assert jax_leaf.shape == tuple(want.shape)
+            assert (_u8(have) == _u8(want)).all(), name
+            assert _u8(have).tobytes() == jax_leaf.tobytes(), name
+            assert have.untyped_storage().nbytes() == want.nbytes  # a leaf of its own
+        assert checkpoint.restored == {"leaves": len(leaves), "bytes": sum(sizes),
+                                       "multi_block_leaves": multi,
+                                       "windows": _windows_of(sizes, window)}
+        assert checkpoint.restored["windows"] > (case != "one_window")
+        if native.available():  # leaves of one key share a call
+            assert 0 < len(calls) < multi
+        else:  # the route without a native build decodes through decompress_into
+            assert not calls
 
 
 DAMAGES = ["forged_length", "truncated_last_record", "crc_mismatch"]
@@ -339,7 +347,7 @@ def test_a_damaged_record_raises_through_a_window_as_through_read_frame(
     crc32 refuses: ``load_leaf(device="cpu")`` (read_frame) and the
     windowed ``load_pytree`` raise the same InvalidDataError, naming the
     record, and leave no thread of the window route running."""
-    monkeypatch.setattr(checkpoint, "_BATCH_WINDOW_BYTES", 256 << 10)
+    monkeypatch.setattr(stream, "_BATCH_WINDOW_BYTES", 256 << 10)
     leaves = _mixed_leaves()
     path = tmp_path / "bad.tpbs"
     _write_checkpoint(path, leaves, checksum=damage == "crc_mismatch")

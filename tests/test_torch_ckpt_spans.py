@@ -7,7 +7,7 @@ each inside it, a wait a window of leaves (here one window) and a copy a
 leaf; with no profiler recording, ``record_function`` is never entered,
 and the file and the loaded tree are the same either way.
 ``checkpoint.restored`` counts the leaves, their bytes, the multi-block
-ones and the windows.  The benchmark's readers of these spans read them
+ones and the windows, of a load onto the host as of one onto a device.  The benchmark's readers of these spans read them
 from a real trace of the same load.
 """
 
@@ -42,7 +42,7 @@ def _state():
 
 LEAVES = 6  # w, the two layers' b and g, rng: the 0-element leaf has no record
 LEAF_BYTES = 2100 * 1024 * 2 + 2 * 64 * 4 * 2 + 16
-WINDOWS = 1  # the leaves' bytes fit one window of checkpoint._BATCH_WINDOW_BYTES
+WINDOWS = 1  # the leaves' bytes fit one window of stream._BATCH_WINDOW_BYTES
 
 
 @pytest.fixture(scope="module")
@@ -137,8 +137,9 @@ def test_the_counter_reads_the_leaves_and_bytes_restored(path, loads):
         tb.load_pytree(path, device="cpu")
     assert checkpoint.restored == {"leaves": loads * LEAVES, "bytes": loads * LEAF_BYTES,
                                    "multi_block_leaves": loads, "windows": loads * WINDOWS}
-    tb.load_pytree(path)  # the host load, no pipeline: not counted
-    assert checkpoint.restored["leaves"] == loads * LEAVES
+    tb.load_pytree(path)  # the host load takes the same pipeline: counted too
+    assert checkpoint.restored["leaves"] == (loads + 1) * LEAVES
+    assert checkpoint.restored["windows"] == (loads + 1) * WINDOWS
     checkpoint.reset_restored()
     assert set(checkpoint.restored.values()) == {0}
 

@@ -3,10 +3,11 @@
 compress_array's device route copies the filtered stream of a CUDA tensor
 into a page-locked host buffer, decompress_array(strategy="device")
 decodes the codec stage into one before copying it to a CUDA target, and
-load_pytree's prefetch pipeline decodes each leaf into one before copying
-it to a CUDA target; these buffers come from torch's caching host
-allocator.  Every other caller, and every CPU tensor or target, keeps
-pageable buffers.
+load_pytree's prefetch pipeline reads and decodes each window of leaves
+into them before copying the leaves to a CUDA target; these buffers come
+from torch's caching host allocator.  Every other caller, and every CPU
+tensor or target, keeps pageable buffers.  One function decides:
+``device._host_buffer(n, device)``.
 
 The CPU cases check that decision, that the records and mesh decoders ask
 for pageable buffers even for a CUDA target, and that repeated calls keep
@@ -32,6 +33,7 @@ import tpu_blosc as jb
 import tpu_blosc_torch as tb
 from tpu_blosc_torch import checkpoint
 from tpu_blosc_torch import device as tdev
+from tpu_blosc_torch import stream
 from tpu_blosc_torch.dist import mesh
 
 BLOCK = 65536
@@ -61,18 +63,22 @@ def _opts(codec: str, shuffle: str):
 
 
 def _buffer_spy(monkeypatch, stop: bool) -> list:
-    """Record the ``pinned`` flag of every host buffer device.py asks for;
-    with ``stop`` raise _Stop at the first one."""
+    """Record, for every host buffer asked of ``device._host_buffer``,
+    whether it decided on page-locked memory: the ``pin_memory`` it gives
+    ``torch.empty``, which is patched for the test (the loaders ask from
+    worker threads) to allocate pageable memory all the same, as this
+    machine can.  With ``stop`` raise _Stop at the first one."""
     seen: list = []
-    real = tdev._host_buffer
+    empty = torch.empty
 
-    def spy(n, pinned):
-        seen.append(pinned)
-        if stop:
-            raise _Stop
-        return real(n, pinned)
+    def pageable(*args, **kwargs):
+        if "pin_memory" in kwargs:
+            seen.append(kwargs.pop("pin_memory"))
+            if stop:
+                raise _Stop
+        return empty(*args, **kwargs)
 
-    monkeypatch.setattr(tdev, "_host_buffer", spy)
+    monkeypatch.setattr(torch, "empty", pageable)
     return seen
 
 
@@ -80,9 +86,15 @@ def _buffer_spy(monkeypatch, stop: bool) -> list:
     (torch.device("cuda", 0), True),
     (torch.device("cuda", 1), True),
     (torch.device("cpu"), False),
-], ids=["cuda0", "cuda1", "cpu"])
-def test_copies_pin_on_a_cuda_device_only(dev, pinned):
-    assert tdev._pins(dev) is pinned
+    (None, False),
+], ids=["cuda0", "cuda1", "cpu", "host"])
+def test_copies_pin_on_a_cuda_device_only(monkeypatch, dev, pinned):
+    """The one decision: a buffer for a CUDA device is page-locked, one for
+    the CPU or for no device (the host keeps it) is pageable."""
+    seen = _buffer_spy(monkeypatch, stop=False)
+    buf = tdev._host_buffer(1000, dev)
+    assert seen == [pinned]
+    assert buf.shape == (1000,) and buf.dtype == torch.uint8 and buf.device.type == "cpu"
 
 
 @pytest.mark.parametrize("route, pinned", [("device", True), ("records", False),
@@ -113,13 +125,15 @@ def _tree() -> dict:
 
 
 @pytest.mark.parametrize("target, pinned", [(torch.device("cuda", 0), True),
-                                            (torch.device("cpu"), False)],
-                         ids=["cuda", "cpu"])
+                                            (torch.device("cpu"), False),
+                                            (False, False)],
+                         ids=["cuda", "cpu", "host"])
 def test_a_checkpoint_load_pins_its_leaves_for_a_cuda_target(monkeypatch, tmp_path, target,
                                                              pinned):
     """load_pytree's pipeline reads a window of leaves into one buffer and
     decodes them into another, both page-locked for a CUDA target, both
-    pageable for a CPU one (here the four leaves make one window)."""
+    pageable for the CPU and for a load onto the host (here the four
+    leaves make one window)."""
     path = tmp_path / "t.tpbs"
     checkpoint.save_pytree(path, _tree())
     seen = _buffer_spy(monkeypatch, stop=pinned)
@@ -183,7 +197,7 @@ def test_cuda_stage_buffers_are_pinned(monkeypatch, card):
     made = []
     real = tdev._host_buffer
     monkeypatch.setattr(tdev, "_host_buffer",
-                        lambda n, pinned: made.append(real(n, pinned)) or made[-1])
+                        lambda n, device: made.append(real(n, device)) or made[-1])
     y = tb.decompress_array(frame, torch.float32, device=card, strategy="device")
     assert [b.is_pinned() for b in made] == [True]
     assert _same(y, x)
@@ -249,7 +263,7 @@ def test_cuda_checkpoint_loads_back_to_back_behind_a_busy_stream(monkeypatch, ca
     made = []
     real = tdev._host_buffer
     monkeypatch.setattr(tdev, "_host_buffer",
-                        lambda n, pinned: made.append(real(n, pinned)) or made[-1])
+                        lambda n, device: made.append(real(n, device)) or made[-1])
     loads = []
     for _ in range(3):
         torch.cuda._sleep(20_000_000)  # hold the stream: the copies wait
@@ -270,8 +284,8 @@ def test_cuda_a_load_of_many_windows_behind_a_held_stream_rewrites_no_slab(
     wait behind it while the worker goes on reading and decoding the next
     windows: every leaf comes back as saved, so no slab (nor a read buffer,
     which only the worker reads) was written again before its copies ran.
-    A load onto the CPU asks for pageable buffers only."""
-    monkeypatch.setattr(checkpoint, "_BATCH_WINDOW_BYTES", 512 << 10)
+    A load onto the CPU, or onto the host, asks for pageable buffers only."""
+    monkeypatch.setattr(stream, "_BATCH_WINDOW_BYTES", 512 << 10)
     tree = {f"w{i}": torch.from_numpy(_signal(2 * BLOCK // 4 if i % 3 else 20_000, 60 + i,
                                               raw_block=None))
             for i in range(48)}
@@ -280,7 +294,7 @@ def test_cuda_a_load_of_many_windows_behind_a_held_stream_rewrites_no_slab(
     made = []
     real = tdev._host_buffer
     monkeypatch.setattr(tdev, "_host_buffer",
-                        lambda n, pinned: made.append(real(n, pinned)) or made[-1])
+                        lambda n, device: made.append(real(n, device)) or made[-1])
     loads = []
     checkpoint.reset_restored()
     for _ in range(3):
@@ -292,7 +306,8 @@ def test_cuda_a_load_of_many_windows_behind_a_held_stream_rewrites_no_slab(
     assert made and all(b.is_pinned() for b in made)
     for back in loads:
         assert all(back[k].device == card and _same(back[k].cpu(), v) for k, v in tree.items())
-    made.clear()
-    back = checkpoint.load_pytree(path, device="cpu")
-    assert made and not any(b.is_pinned() for b in made)
-    assert all(_same(back[k], v) for k, v in tree.items())
+    for device in ("cpu", False):
+        made.clear()
+        back = checkpoint.load_pytree(path, device=device)
+        assert made and not any(b.is_pinned() for b in made)
+        assert all(_same(back[k], v) for k, v in tree.items())

@@ -24,17 +24,18 @@ CUDA tensors are "device" records: a run of two or more goes through a
 k's host codec and file write (_compress_array_stage2), the two halves of
 compress_array, so the frames are compress_array's by construction.  CPU
 tensors and NumPy arrays are "host" records, compressed in batches of up
-to _BATCH_WINDOW_BYTES.  A load onto a device takes its leaves in
-windows of consecutive records of at most _BATCH_WINDOW_BYTES: one worker
-thread reads window w+1 with one read, another decodes window w into one
-slab (the single-block frames in one native batch call, multi-block
-frames that share codec, filter, type size and block size in one native
-block call), while this thread copies window w-1's leaves to the device.
-For a CUDA device the read buffers and slabs are page-locked buffers of
-torch's caching host allocator (device._host_buffer), each leaf's copy is
-queued on the stream without waiting for it, and a slab goes back to the
-allocator, which hands it out again only once those copies have run,
-when its last leaf is dropped.
+to stream._BATCH_WINDOW_BYTES.  A load, onto the host or a device, takes
+its leaves in windows of consecutive records of at most as many bytes
+(stream._decoded_windows): one worker thread reads window w+1 with one
+read, another decodes window w into one slab (the single-block frames in
+one native batch call, multi-block frames that share codec, filter, type
+size and block size in one native block call), while this thread copies
+window w-1's leaves out of the slab, each into storage of its own on the
+target.  For a CUDA device the read buffers and slabs are page-locked
+buffers of torch's caching host allocator (device._host_buffer), each
+leaf's copy is queued on the stream without waiting for it, and a slab
+goes back to the allocator, which hands it out again only once those
+copies have run, when its last leaf is dropped.
 
 A DTensor leaf of save_pytree is gathered (every rank of its mesh calls
 save_pytree) and written whole by process 0, as the JAX package writes a
@@ -55,52 +56,26 @@ one process.
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from . import device as _device
 from . import dtypes
-from .api import (
-    _checked_header,
-    _decode_native_map,
-    _is_container,
-    compress_batch_with_options,
-    decompress_into,
-)
-from .chunk import checked_payloads, native_pipeline_codec, parse_block_table
-from .device import (
-    _compress_array_stage1,
-    _compress_array_stage2,
-    _pins,
-    checked_decode_size,
-    host_decode,
-    tensor_bytes,
-)
-from .errors import DecompressionFailedError, InvalidDataError
+from . import stream as _stream
+from .api import compress_batch_with_options
+from .device import _compress_array_stage1, _compress_array_stage2, tensor_bytes
+from .errors import InvalidDataError
 from .filters import load_target
-from .format import FLAG_SPLIT, FORMAT_VERSION, HEADER_SIZE
-from .native import backend as _nb
 from .options import Options
 from .stats import span
-from .stream import DICT_MAGIC, StreamReader, StreamWriter, _iter_prefetch
+from .stream import StreamReader, StreamWriter, _decoded_windows, _iter_prefetch
 
 _MANIFEST_VERSION = 1
 
-# Host leaves compress in batches of about this many bytes: one native
-# call per element size in a window, peak memory about a window; a load
-# onto a device decodes its leaves in windows of at most this many bytes
-_BATCH_WINDOW_BYTES = 64 * 1024 * 1024
-
-# every leaf of a load's window starts at a multiple of this in its slab,
-# so that any dtype can view it
-_SLAB_ALIGN = 64
-
-# what load_pytree's pipeline (a device load, strategy "transfer" or
-# "auto") restored since the last reset_restored(): leaves, their tensor
-# bytes, the leaves whose record is a multi-block frame, and the windows
-# the leaves were decoded in
+# what load_pytree's pipeline (a load onto the host, or onto a device with
+# strategy "transfer" or "auto") restored since the last reset_restored():
+# leaves, their tensor bytes, the leaves whose record is a multi-block
+# frame, and the windows the leaves were decoded in
 restored = {"leaves": 0, "bytes": 0, "multi_block_leaves": 0, "windows": 0}
 
 
@@ -228,7 +203,7 @@ def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
             buf = _host_bytes(data)
             pending.append(buf)
             pending_bytes += buf[0].nbytes
-            if pending_bytes >= _BATCH_WINDOW_BYTES:
+            if pending_bytes >= _stream._BATCH_WINDOW_BYTES:
                 flush()
             i += 1
             continue
@@ -348,9 +323,10 @@ def load_pytree(path, device=False, strategy: str = "transfer"):
     """Read a checkpoint back: CPU tensors, or with ``device=True`` (the
     current CUDA device) or a device, tensors there.
 
-    ``strategy`` goes to decompress_array for each leaf of a device load;
-    "transfer" and "auto" decode on the host with a prefetch pipeline and
-    copy each leaf once; "device", "rle" and "records" decode each leaf
+    A load decodes its leaves on the host with a prefetch pipeline, in
+    windows of records, and copies each leaf once, to the host or the
+    device.  ``strategy`` applies to a device load: "transfer" and "auto"
+    take the pipeline; "device", "rle" and "records" decode each leaf
     through decompress_array's strategy of that name.
 
     While a profiler records, the call is the span ``tpbt.load_pytree``
@@ -358,8 +334,8 @@ def load_pytree(path, device=False, strategy: str = "transfer"):
     (opening the file, its manifest and the leaf specs) and, on the
     pipeline, ``tpbt.load_pytree.wait`` (this thread waiting for the
     workers' next decoded window) and ``tpbt.load_pytree.h2d`` (a leaf's
-    copy to the target device), all on the calling thread.  The pipeline
-    counts what it restores in ``restored``.
+    copy out of its window, to the target), all on the calling thread.
+    The pipeline counts what it restores in ``restored``.
     """
     with span("tpbt.load_pytree"):
         target = load_target(device, "load_pytree")
@@ -370,249 +346,40 @@ def load_pytree(path, device=False, strategy: str = "transfer"):
 
 
 def _load_tree(r: StreamReader, meta: dict, specs: dict | None, target, strategy: str):
-    """load_pytree's body over an open reader."""
-    ready: dict[int, torch.Tensor] = {}
-    dev_gen = None
-    pinned = target is not None and _pins(target)
-    if target is not None and strategy in ("transfer", "auto") and specs is not None:
-        # two workers: one reads window w + 1 while the other decodes
-        # window w, and this thread copies window w - 1's leaves out
-        windows = _windows([_spec_nbytes(*specs[i]) for i in range(meta["leaves"])])
-        reads = _iter_prefetch(
-            lambda w: r.read_frames(windows[w][0] + 1, windows[w][1] + 1,
-                                    lambda n: _device._host_buffer(n, pinned).numpy()),
-            len(windows), prefetch=1,
-        )
-
-        def decode(w: int):
-            try:
-                return _decode_window(r, windows[w][0], next(reads), specs, pinned)
-            except BaseException:
-                reads.close()  # the reader stops too, and frees what it holds
-                raise
-
-        dev_gen = _iter_prefetch(decode, len(windows), prefetch=1)
-    elif target is None and specs is not None:
-        # decode straight into tensors allocated from the manifest, for
-        # the leaves whose size agrees with their record's own header
-        # (a forged manifest must not drive the allocations)
-        for i, (dtype, shape) in specs.items():
-            nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
-            try:
-                if r.peek_size(i + 1) == nbytes:
-                    ready[i] = torch.empty(shape, dtype=dtype)
-            except (InvalidDataError, MemoryError, RuntimeError):
-                continue  # the per-leaf path raises the typed error
-        order = sorted(ready)
-        counts = r.read_many_into(
-            [i + 1 for i in order], [tensor_bytes(ready[i]).numpy() for i in order]
-        )
-        for i, c in zip(order, counts):
-            if c != ready[i].numel() * ready[i].element_size():
-                del ready[i]
-
+    """load_pytree's body over an open reader; ``target`` None loads onto
+    the host."""
+    dest = target if target is not None else torch.device("cpu")
+    windows = None
+    if specs is not None and (target is None or strategy in ("transfer", "auto")):
+        # record k holds leaf k - 1 (record 0 is the manifest)
+        windows = _decoded_windows(r, {i + 1: spec for i, spec in specs.items()}, dest)
     produced: dict[int, tuple[torch.Tensor, bool]] = {}
 
     def fetch(i: int, dtype: torch.dtype, shape: tuple):
-        if dev_gen is not None:
-            # windows arrive in index order; a manifest may walk the
-            # leaves in another, so buffer until leaf i is there
-            while i not in produced:
-                with span("tpbt.load_pytree.wait"):
-                    window = next(dev_gen)
-                restored["windows"] += 1
-                for k, host, split in window:
-                    produced[k] = host, split
-            host, split = produced.pop(i)
-            with span("tpbt.load_pytree.h2d"):
-                # copy=True: a CPU target's leaf must not share the slab
-                out = host.to(target, non_blocking=pinned, copy=True)
-            restored["leaves"] += 1
-            restored["bytes"] += host.nbytes
-            restored["multi_block_leaves"] += split
-            return out
-        if target is not None:
+        if windows is None:
+            if target is None:
+                return _read_leaf(r, i + 1, dtype, shape)
             return r.read_array(i + 1, dtype, shape=shape, device=target,
                                 strategy=strategy)
-        got = ready.get(i)
-        return got if got is not None else _read_leaf(r, i + 1, dtype, shape)
+        # windows arrive in index order; a manifest may walk the leaves in
+        # another, so buffer until leaf i is there
+        while i not in produced:
+            with span("tpbt.load_pytree.wait"):
+                window = next(windows)
+            restored["windows"] += 1
+            for k, host, split in window:
+                produced[k - 1] = host, split
+        host, split = produced.pop(i)
+        with span("tpbt.load_pytree.h2d"):
+            # copy=True: a CPU target's leaf must not share the slab; from a
+            # page-locked slab the copy is queued and this thread goes on
+            out = host.to(dest, non_blocking=True, copy=True)
+        restored["leaves"] += 1
+        restored["bytes"] += host.nbytes
+        restored["multi_block_leaves"] += split
+        return out
 
     return _decode(meta["tree"], fetch, target)
-
-
-# ---------------------------------------------------------------------------
-# a device load's windows: the prefetch worker reads the records of a run
-# of leaves with one read and decodes them into one slab of host memory
-# (page-locked for a CUDA target), in as few native calls as it can
-# ---------------------------------------------------------------------------
-
-
-def _aligned(n: int) -> int:
-    return -(-n // _SLAB_ALIGN) * _SLAB_ALIGN
-
-
-def _spec_nbytes(dtype: torch.dtype, shape: tuple) -> int:
-    """A leaf's bytes by the manifest; -1 where its shape is none."""
-    try:
-        return dtype.itemsize * int(np.prod(shape, dtype=np.int64))
-    except (TypeError, ValueError):
-        return -1
-
-
-def _windows(sizes: list[int]) -> list[tuple[int, int]]:
-    """[lo, hi) runs of consecutive leaves whose sizes, each rounded up to
-    _SLAB_ALIGN, add up to at most _BATCH_WINDOW_BYTES; a larger leaf is a
-    window by itself."""
-    runs, lo, total = [], 0, 0
-    for i, n in enumerate(sizes):
-        if i > lo and total + _aligned(n) > _BATCH_WINDOW_BYTES:
-            runs.append((lo, i))
-            lo, total = i, 0
-        total += _aligned(n)
-    if sizes:
-        runs.append((lo, len(sizes)))
-    return runs
-
-
-@dataclass
-class _Leaf:
-    """A leaf of a window and how it is decoded.  ``frame`` is its record,
-    a view of the window's read buffer (or read_frame's bytes).  Route
-    "own": into a buffer of its own, as a leaf alone would be (a
-    dictionary record, a container, a header whose size the manifest does
-    not give); else into the slab at ``at``: "frames", with the window's
-    other single-block frames in one batch call; "blocks", a multi-block
-    frame in a native block decode that ``key`` (native codec, filter,
-    type size, block size) may share, its ``payloads`` (offsets in the
-    read buffer, sizes, raw flags); "scalar", through decompress_into,
-    which also decodes again (``redo``) a leaf whose batch call failed."""
-
-    i: int
-    frame: np.ndarray
-    dtype: torch.dtype
-    shape: tuple
-    route: str = "own"
-    n: int = 0
-    key: tuple = ()
-    payloads: tuple = ()
-    at: int = 0
-    redo: bool = False
-
-
-def _plan_leaf(leaf: _Leaf, buf: np.ndarray) -> None:
-    """The leaf's route and size, from its frame's header, which is
-    checked as decompress_into checks it, with its errors."""
-    frame = leaf.frame
-    if bytes(frame[:4]) == DICT_MAGIC or _is_container(bytes(frame[:4])):
-        return
-    leaf.n = checked_decode_size(bytes(frame[:HEADER_SIZE]), leaf.dtype)
-    if leaf.n != _spec_nbytes(leaf.dtype, leaf.shape):
-        return  # the view as the manifest's shape refuses it
-    if not frame[2] & FLAG_SPLIT:
-        leaf.route = "frames"
-        return
-    leaf.route = "scalar"
-    header = _checked_header(frame)
-    native = native_pipeline_codec(header.codec, 1)
-    base = frame.ctypes.data - buf.ctypes.data
-    if native is None or not 0 <= base < buf.size:
-        return
-    entries, offset = parse_block_table(frame, header)
-    offsets, psizes, is_memcpy, _ = checked_payloads(frame, header, entries, offset)
-    leaf.route = "blocks"
-    leaf.key = (native[0], int(header.shuffle_mode), header.type_size, header.block_size)
-    leaf.payloads = (offsets + base, psizes, is_memcpy)
-
-
-def _lay_out(leaves: list[_Leaf]) -> tuple[int, list[list[_Leaf]]]:
-    """Place the slab's leaves: (slab bytes, the native block calls).
-
-    Multi-block leaves of one key share a call: those of whole blocks back
-    to back, then one whose last block is short, so block k of the call
-    lies at k block sizes from its start; each other one with a short
-    last block has a call of its own, as has every leaf whose block size
-    would leave the next one unaligned."""
-    runs: dict[tuple, list[_Leaf]] = {}
-    for leaf in leaves:
-        if leaf.route == "blocks":
-            runs.setdefault(leaf.key, []).append(leaf)
-    calls: list[list[_Leaf]] = []
-    for (*_, block), members in runs.items():
-        if block % _SLAB_ALIGN:
-            calls += [[leaf] for leaf in members]
-            continue
-        ragged = [leaf for leaf in members if leaf.n % block]
-        calls.append([leaf for leaf in members if not leaf.n % block] + ragged[:1])
-        calls += [[leaf] for leaf in ragged[1:]]
-    size = 0
-    for call in calls:
-        size = _aligned(size)
-        for leaf in call:
-            leaf.at, size = size, size + leaf.n
-    for leaf in leaves:
-        if leaf.route in ("frames", "scalar"):
-            leaf.at, size = _aligned(size), _aligned(size) + leaf.n
-    return size, calls
-
-
-def _decode_window(r: StreamReader, lo: int, read, specs: dict,
-                   pinned: bool) -> list[tuple[int, torch.Tensor, bool]]:
-    """The leaves of a window from ``read`` (StreamReader.read_frames' of
-    the records of leaves lo and on) as (index, host tensor of the leaf's dtype and shape,
-    multi-block frame), decoded into one slab.
-
-    A record that fails its checks ends the window there: the leaves
-    before it are decoded first, then its error is raised, the order in
-    which a leaf at a time raises."""
-    buf, frames, error = read
-    leaves: list[_Leaf] = []
-    try:
-        for i, frame in enumerate(frames, lo):
-            leaf = _Leaf(i, frame, *specs[i])
-            _plan_leaf(leaf, buf)
-            leaves.append(leaf)
-    except Exception as exc:  # raised below, after the leaves before it
-        error = exc
-    size, calls = _lay_out(leaves)
-    slab = _device._host_buffer(size, pinned)
-    out_u8 = slab.numpy()
-    singles = [leaf for leaf in leaves if leaf.route == "frames"]
-    counts = (_nb.decompress_frames_into([leaf.frame for leaf in singles],
-                                         [out_u8[leaf.at : leaf.at + leaf.n] for leaf in singles],
-                                         _decode_native_map())
-              if singles and _nb.available() else [None] * len(singles))
-    for leaf, count in zip(singles, counts):
-        leaf.redo = count is None
-    for call in calls:
-        codec, mode, ts, block = call[0].key
-        offsets, psizes, is_memcpy = (np.concatenate(p) for p in
-                                      zip(*(leaf.payloads for leaf in call)))
-        try:
-            _nb.decompress_blocks(buf, offsets, psizes, is_memcpy, block,
-                                  sum(leaf.n for leaf in call), ts, mode, codec,
-                                  out_addr=out_u8.ctypes.data + call[0].at)
-        except DecompressionFailedError:
-            for leaf in call:
-                leaf.redo = True  # decompress_into raises the leaf's own error
-    decoded = []
-    for leaf in leaves:
-        frame = leaf.frame
-        if leaf.route == "own":
-            raw = bytes(frame)
-            if raw[:4] == DICT_MAGIC:
-                host = torch.frombuffer(bytearray(r._decode_dict_record(raw)),
-                                        dtype=torch.uint8)
-            else:
-                host = host_decode(raw, checked_decode_size(raw, leaf.dtype), pinned)
-        else:
-            host = slab[leaf.at : leaf.at + leaf.n]
-            if leaf.redo or leaf.route == "scalar":
-                decompress_into(bytes(frame), host.numpy())
-        split = frame[0] == FORMAT_VERSION and bool(frame[2] & FLAG_SPLIT)
-        decoded.append((leaf.i, host.view(leaf.dtype).reshape(leaf.shape), split))
-    if error is not None:
-        raise error
-    return decoded
 
 
 def _walk_manifest(tree: dict, key_path: str) -> dict:

@@ -22,10 +22,11 @@ it, passing blocks that were stored raw through untouched.
 
 The two bulk copies of these routes, the filtered stream's to the host
 and back, go through page-locked host memory when the device is a CUDA
-device (``_pins``): buffers of torch's caching host allocator, which hands
-a block out again once it is freed and its copies have completed, so a
-call of a size seen before allocates no host memory and faults in no
-page.  Elsewhere the buffers are ordinary (pageable) host memory.
+device (``_host_buffer``, which alone decides): buffers of torch's caching
+host allocator, which hands a block out again once it is freed and its
+copies have completed, so a call of a size seen before allocates no host
+memory and faults in no page.  Elsewhere the buffers are ordinary
+(pageable) host memory.
 
 A codec registered with ``register_codec`` (a new ID, or one in place of
 a builtin) changes the host stage only: the filter still runs on the
@@ -190,11 +191,11 @@ def _device_filter_fetch(flat: torch.Tensor, opts: Options, nb_full: int,
         )
         staged[body:] = flat[body:]
     with span("tpbt.compress.d2h"):  # the one device-to-host copy
-        if _pins(staged.device):
-            host = _host_buffer(staged.numel(), True)
-            host.copy_(staged)  # blocking: the host codec reads it next
+        if staged.device.type == "cpu":
+            host = staged
         else:
-            host = staged.cpu()
+            host = _host_buffer(staged.numel(), staged.device)
+            host.copy_(staged)  # blocking: the host codec reads it next
         host = host.numpy()
     if host.size - body >= ts:
         with span("tpbt.compress.host_filter"):
@@ -202,18 +203,14 @@ def _device_filter_fetch(flat: torch.Tensor, opts: Options, nb_full: int,
     return host
 
 
-def _pins(device: torch.device) -> bool:
-    """Whether the host side of a bulk copy to or from ``device`` is
-    page-locked: on a CUDA device, where a pageable copy runs at a
-    fraction of the link's rate, staged through a bounce buffer."""
-    return device.type == "cuda"
-
-
-def _host_buffer(n: int, pinned: bool) -> torch.Tensor:
-    """An uninitialised (n,) uint8 host tensor; ``pinned`` takes it from
-    torch's caching host allocator, page-locked and reused from call to
-    call."""
-    return torch.empty(n, dtype=torch.uint8, pin_memory=pinned)
+def _host_buffer(n: int, device: torch.device | None) -> torch.Tensor:
+    """An uninitialised (n,) uint8 host tensor for a bulk copy to or from
+    ``device`` (None: a buffer that stays on the host).  For a CUDA device
+    it comes from torch's caching host allocator, page-locked and reused
+    from call to call: a pageable copy runs at a fraction of the link's
+    rate, staged through a bounce buffer.  Elsewhere it is pageable."""
+    return torch.empty(n, dtype=torch.uint8,
+                       pin_memory=device is not None and device.type == "cuda")
 
 
 def _compress_array_stage2(staged) -> bytes:
@@ -315,20 +312,19 @@ def checked_decode_size(data, dtype: torch.dtype) -> int:
     return n
 
 
-def host_decode(data, n: int, pinned: bool = False) -> torch.Tensor:
+def host_decode(data, n: int, device: torch.device | None = None) -> torch.Tensor:
     """The host half of decompress_array's transfer route: the frame's
     ``n`` bytes decoded into a fresh CPU uint8 tensor
-    (≙ tpu_blosc/device.py:1525-1535); ``pinned`` decodes into a
-    page-locked buffer (``_host_buffer``), for a caller that copies it to
-    a CUDA device."""
+    (≙ tpu_blosc/device.py:1525-1535), a buffer for a copy to ``device``
+    (``_host_buffer``: page-locked for a CUDA device)."""
     with span("tpbt.decompress.codec"):
-        host = _host_buffer(n, pinned)
+        host = _host_buffer(n, device)
         decompress_into(data, host.numpy())
     return host
 
 
 def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int | None,
-                            forbid_memcpy: bool = False, pinned: bool = False):
+                            forbid_memcpy: bool = False, device: torch.device | None = None):
     """Host decode of a FLAG_SPLIT frame's blocks to the still-filtered
     stream (shuffle mode 0), as a CPU uint8 tensor, with the block table;
     ``native_codec`` None decodes with the codec registered under the
@@ -336,8 +332,8 @@ def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int | None
     no codec serves the ID: the host path then raises with full context
     (≙ tpu_blosc/device.py:1592-1627).  Blocks stored raw come back raw;
     with ``forbid_memcpy`` a frame that has one gives None before anything
-    is decoded.  ``pinned`` decodes into a page-locked buffer, for a
-    caller that copies the whole stream to a CUDA device."""
+    is decoded.  The stream is decoded into a buffer for a copy to
+    ``device`` (``_host_buffer``; None: it stays on the host)."""
     if header.nbytes_comp > len(raw) or header.nbytes_comp < HEADER_SIZE:
         return None
     if native_codec is None and get_codec(header.codec) is None:
@@ -351,7 +347,7 @@ def _decode_filtered_blocks(raw: bytes, header, n: int, native_codec: int | None
     if int(offsets[-1] + psizes[-1]) > min(len(raw), header.nbytes_comp):
         return None
     with span("tpbt.decompress.codec"):
-        buf = _host_buffer(n, pinned)
+        buf = _host_buffer(n, device)
         if native_codec is None:
             registry_blocks_decode(raw, header, entries, offset, buf.numpy())
         else:
@@ -382,9 +378,8 @@ def _decompress_array_devfilter(data, n: int, device: torch.device):
         return None
     # a registered codec decodes the blocks on the host, the card unfilters
     native = native_pipeline_codec(header.codec, 1)
-    pinned = _pins(device)
     decoded = _decode_filtered_blocks(raw, header, n, native[0] if native else None,
-                                      pinned=pinned)
+                                      device=device)
     if decoded is None:
         return None
     host, entries = decoded
@@ -395,15 +390,15 @@ def _decompress_array_devfilter(data, n: int, device: torch.device):
             host[body:] = torch.from_numpy(filters.unfilter_bytes(host[body:].numpy(), ts, mode))
     # from page-locked memory both copies are queued and the host goes on:
     # the caching host allocator hands their buffers out again only after
-    # the copies have completed
+    # the copies have completed (from pageable memory a copy waits)
     with span("tpbt.decompress.h2d"):
-        stream = host.to(device, non_blocking=pinned)  # the one host-to-device copy
+        stream = host.to(device, non_blocking=True)  # the one host-to-device copy
     with span("tpbt.decompress.unfilter"):
         keep = [m for _, m in entries[:nb_full]]
         keep_raw = None
-        if any(keep):
-            keep_raw = torch.tensor(keep, dtype=torch.bool, pin_memory=pinned).to(
-                device, non_blocking=pinned)
+        if any(keep):  # the mask is pinned as the stream's buffer is
+            keep_raw = torch.tensor(keep, dtype=torch.bool, pin_memory=host.is_pinned()).to(
+                device, non_blocking=True)
         out = torch.empty_like(stream)
         filters.unfilter_blocks(
             stream[:body].view(nb_full, bs), ts, mode, keep_raw=keep_raw,

@@ -37,10 +37,16 @@ import os
 import struct
 import threading
 import zlib
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from . import device as _device
+from . import format as _format
+from .api import _checked_header, _decode_native_map, _is_container, decompress_into
+from .chunk import checked_payloads, native_pipeline_codec, parse_block_table
+from .device import checked_decode_size, host_decode
 from .errors import (
     BloscError,
     DecompressionFailedError,
@@ -48,6 +54,7 @@ from .errors import (
     InvalidHeaderError,
     SizeMismatchError,
 )
+from .native import backend as _nb
 from .options import Options
 
 MAGIC = b"TPBS"
@@ -813,6 +820,222 @@ def _iter_prefetch(make_item, n: int, prefetch: int):
             yield item
     finally:
         stop.set()
+
+
+# ---------------------------------------------------------------------------
+# a checkpoint load's windows: one worker thread reads the records of a run
+# of leaves with one read, another decodes them into one slab of host
+# memory (page-locked for a CUDA target), in as few native calls as it can
+# ---------------------------------------------------------------------------
+
+# a load decodes its records in windows of at most this many bytes, and a
+# checkpoint's save compresses its host leaves in batches of about as many
+_BATCH_WINDOW_BYTES = 64 * 1024 * 1024
+
+# every leaf of a window starts at a multiple of this in its slab, so that
+# any dtype can view it
+_SLAB_ALIGN = 64
+
+
+def _decoded_windows(reader: StreamReader, specs: dict, device: torch.device):
+    """The records that ``specs`` names (record index -> (dtype, shape), a
+    run of consecutive records), decoded on two worker threads for a copy
+    to ``device``: an iterator of windows, each a list of (record index,
+    host tensor of the record's dtype and shape, multi-block frame).
+
+    One worker reads window w + 1 with one read (read_frames) while the
+    other decodes window w into one slab (_decode_window), both into
+    buffers of device._host_buffer for ``device``.  A window's tensors
+    are views of its slab; a slab goes back to the allocator when its last
+    tensor is dropped.  The workers start with the first window asked
+    for, and an error ends both.
+    """
+    first = min(specs, default=0)
+    windows = [(first + lo, first + hi) for lo, hi in
+               _windows([_spec_nbytes(*specs[first + k]) for k in range(len(specs))])]
+    reads = _iter_prefetch(
+        lambda w: reader.read_frames(*windows[w],
+                                     lambda n: _device._host_buffer(n, device).numpy()),
+        len(windows), prefetch=1,
+    )
+
+    def decode(w: int):
+        try:
+            return _decode_window(reader, windows[w][0], next(reads), specs, device)
+        except BaseException:
+            reads.close()  # the reader stops too, and frees what it holds
+            raise
+
+    return _iter_prefetch(decode, len(windows), prefetch=1)
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _SLAB_ALIGN) * _SLAB_ALIGN
+
+
+def _spec_nbytes(dtype: torch.dtype, shape: tuple) -> int:
+    """A record's bytes by its spec; -1 where its shape is none."""
+    try:
+        return dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+    except (TypeError, ValueError):
+        return -1
+
+
+def _windows(sizes: list[int]) -> list[tuple[int, int]]:
+    """[lo, hi) runs of consecutive records whose sizes, each rounded up
+    to _SLAB_ALIGN, add up to at most _BATCH_WINDOW_BYTES; a larger record
+    is a window by itself."""
+    runs, lo, total = [], 0, 0
+    for i, n in enumerate(sizes):
+        if i > lo and total + _aligned(n) > _BATCH_WINDOW_BYTES:
+            runs.append((lo, i))
+            lo, total = i, 0
+        total += _aligned(n)
+    if sizes:
+        runs.append((lo, len(sizes)))
+    return runs
+
+
+@dataclass
+class _Leaf:
+    """A leaf of a window (record ``i``, its dtype and shape) and how it is
+    decoded.  ``frame`` is its record, a view of the window's read buffer
+    (or read_frame's bytes).  Route "own": into a buffer of its own, as a
+    record alone would be (a dictionary record, a container, a header whose
+    size the spec does not give); else into the slab at ``at``: "frames",
+    with the window's other single-block frames in one batch call;
+    "blocks", a multi-block frame in a native block decode that ``key``
+    (native codec, filter, type size, block size) may share, its
+    ``payloads`` (offsets in the read buffer, sizes, raw flags); "scalar",
+    through decompress_into, which also decodes again (``redo``) a leaf
+    whose batch call failed."""
+
+    i: int
+    frame: np.ndarray
+    dtype: torch.dtype
+    shape: tuple
+    route: str = "own"
+    n: int = 0
+    key: tuple = ()
+    payloads: tuple = ()
+    at: int = 0
+    redo: bool = False
+
+
+def _plan_leaf(leaf: _Leaf, buf: np.ndarray) -> None:
+    """The leaf's route and size, from its frame's header, which is
+    checked as decompress_into checks it, with its errors."""
+    frame = leaf.frame
+    if bytes(frame[:4]) == DICT_MAGIC or _is_container(bytes(frame[:4])):
+        return
+    leaf.n = checked_decode_size(bytes(frame[:_format.HEADER_SIZE]), leaf.dtype)
+    if leaf.n != _spec_nbytes(leaf.dtype, leaf.shape):
+        return  # the view as the spec's shape refuses it
+    if not frame[2] & _format.FLAG_SPLIT:
+        leaf.route = "frames"
+        return
+    leaf.route = "scalar"
+    header = _checked_header(frame)
+    native = native_pipeline_codec(header.codec, 1)
+    base = frame.ctypes.data - buf.ctypes.data
+    if native is None or not 0 <= base < buf.size:
+        return
+    entries, offset = parse_block_table(frame, header)
+    offsets, psizes, is_memcpy, _ = checked_payloads(frame, header, entries, offset)
+    leaf.route = "blocks"
+    leaf.key = (native[0], int(header.shuffle_mode), header.type_size, header.block_size)
+    leaf.payloads = (offsets + base, psizes, is_memcpy)
+
+
+def _lay_out(leaves: list[_Leaf]) -> tuple[int, list[list[_Leaf]]]:
+    """Place the slab's leaves: (slab bytes, the native block calls).
+
+    Multi-block leaves of one key share a call: those of whole blocks back
+    to back, then one whose last block is short, so block k of the call
+    lies at k block sizes from its start; each other one with a short last
+    block has a call of its own, as has every leaf whose block size would
+    leave the next one unaligned."""
+    runs: dict[tuple, list[_Leaf]] = {}
+    for leaf in leaves:
+        if leaf.route == "blocks":
+            runs.setdefault(leaf.key, []).append(leaf)
+    calls: list[list[_Leaf]] = []
+    for (*_, block), members in runs.items():
+        if block % _SLAB_ALIGN:
+            calls += [[leaf] for leaf in members]
+            continue
+        ragged = [leaf for leaf in members if leaf.n % block]
+        calls.append([leaf for leaf in members if not leaf.n % block] + ragged[:1])
+        calls += [[leaf] for leaf in ragged[1:]]
+    size = 0
+    for call in calls:
+        size = _aligned(size)
+        for leaf in call:
+            leaf.at, size = size, size + leaf.n
+    for leaf in leaves:
+        if leaf.route in ("frames", "scalar"):
+            leaf.at, size = _aligned(size), _aligned(size) + leaf.n
+    return size, calls
+
+
+def _decode_window(r: StreamReader, lo: int, read, specs: dict,
+                   device: torch.device) -> list[tuple[int, torch.Tensor, bool]]:
+    """The records of a window from ``read`` (read_frames' of records lo
+    and on) as (record index, host tensor of its dtype and shape,
+    multi-block frame), decoded into one slab for a copy to ``device``.
+
+    A record that fails its checks ends the window there: the records
+    before it are decoded first, then its error is raised, the order in
+    which a record at a time raises."""
+    buf, frames, error = read
+    leaves: list[_Leaf] = []
+    try:
+        for i, frame in enumerate(frames, lo):
+            leaf = _Leaf(i, frame, *specs[i])
+            _plan_leaf(leaf, buf)
+            leaves.append(leaf)
+    except Exception as exc:  # raised below, after the records before it
+        error = exc
+    size, calls = _lay_out(leaves)
+    slab = _device._host_buffer(size, device)
+    out_u8 = slab.numpy()
+    singles = [leaf for leaf in leaves if leaf.route == "frames"]
+    counts = (_nb.decompress_frames_into([leaf.frame for leaf in singles],
+                                         [out_u8[leaf.at : leaf.at + leaf.n] for leaf in singles],
+                                         _decode_native_map())
+              if singles and _nb.available() else [None] * len(singles))
+    for leaf, count in zip(singles, counts):
+        leaf.redo = count is None
+    for call in calls:
+        codec, mode, ts, block = call[0].key
+        offsets, psizes, is_memcpy = (np.concatenate(p) for p in
+                                      zip(*(leaf.payloads for leaf in call)))
+        try:
+            _nb.decompress_blocks(buf, offsets, psizes, is_memcpy, block,
+                                  sum(leaf.n for leaf in call), ts, mode, codec,
+                                  out_addr=out_u8.ctypes.data + call[0].at)
+        except DecompressionFailedError:
+            for leaf in call:
+                leaf.redo = True  # decompress_into raises the leaf's own error
+    decoded = []
+    for leaf in leaves:
+        frame = leaf.frame
+        if leaf.route == "own":
+            raw = bytes(frame)
+            if raw[:4] == DICT_MAGIC:
+                host = torch.frombuffer(bytearray(r._decode_dict_record(raw)),
+                                        dtype=torch.uint8)
+            else:
+                host = host_decode(raw, checked_decode_size(raw, leaf.dtype), device)
+        else:
+            host = slab[leaf.at : leaf.at + leaf.n]
+            if leaf.redo or leaf.route == "scalar":
+                decompress_into(bytes(frame), host.numpy())
+        split = frame[0] == _format.FORMAT_VERSION and bool(frame[2] & _format.FLAG_SPLIT)
+        decoded.append((leaf.i, host.view(leaf.dtype).reshape(leaf.shape), split))
+    if error is not None:
+        raise error
+    return decoded
 
 
 class _ArrayIterator:
