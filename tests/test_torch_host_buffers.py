@@ -2,21 +2,24 @@
 
 compress_array's device route copies the filtered stream of a CUDA tensor
 into a page-locked host buffer, decompress_array(strategy="device")
-decodes the codec stage into one before copying it to a CUDA target, and
-load_pytree's prefetch pipeline reads and decodes each window of leaves
-into them before copying the leaves to a CUDA target; these buffers come
-from torch's caching host allocator.  Every other caller, and every CPU
-tensor or target, keeps pageable buffers.  One function decides:
-``device._host_buffer(n, device)``.
+decodes the codec stage into one before copying it to a CUDA target, the
+host route of single-block tensors copies a CUDA tensor into one and
+decodes a frame straight into one for a CUDA target, and load_pytree's
+prefetch pipeline reads and decodes each window of leaves into them
+before copying the leaves to a CUDA target; these buffers come from
+torch's caching host allocator.  Every other caller, every CPU tensor or
+target, and a sharded decode keep pageable buffers.  One function
+decides: ``device._host_buffer(n, device)``.
 
 The CPU cases check that decision, that the records and mesh decoders ask
-for pageable buffers even for a CUDA target, and that repeated calls keep
-writing tpu_blosc's frames.  The CUDA cases (``cuda`` in their names; they
-skip without a card) hold reuse to the CPU route: back-to-back and
-overlapping round trips, four threads compressing at once, a checkpoint
-of same-size leaves, and checkpoint loads behind a busy stream, one of
-them of many windows, whose slabs must not be written again before the
-copies out of them have run.
+for pageable buffers even for a CUDA target, that a CPU tensor's bytes
+reach the codec uncopied, and that repeated calls keep writing
+tpu_blosc's frames.  The CUDA cases (``cuda`` in their names; they skip
+without a card) hold reuse to the CPU route: back-to-back and overlapping
+round trips of multi-block and single-block frames, four threads
+compressing at once, a checkpoint of same-size leaves, and checkpoint
+loads behind a busy stream, one of them of many windows, whose slabs must
+not be written again before the copies out of them have run.
 """
 
 from __future__ import annotations
@@ -116,6 +119,80 @@ def test_only_the_device_decode_asks_for_a_pinned_buffer(monkeypatch, route, pin
     assert seen == [pinned]
 
 
+RAMP = np.arange(262144, dtype=np.float32)  # one 1 MiB block: the host route
+
+
+def _ramp_opts():
+    """LZ4 5 over byte-shuffled float32, automatic blocks, for both
+    packages."""
+    kw = dict(level=5, type_size=4)
+    return (jb.Options(codec=jb.Codec.LZ4, shuffle=jb.Shuffle.SHUFFLE, **kw),
+            tb.Options(codec=tb.Codec.LZ4, shuffle=tb.Shuffle.SHUFFLE, **kw))
+
+
+class _OnCard:
+    """What ``tensor_bytes`` gives for a tensor on a CUDA device, as far as
+    the host route reads it before it asks for a host buffer."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, flat: torch.Tensor):
+        self.flat = flat
+
+    def numel(self) -> int:
+        return self.flat.numel()
+
+
+@pytest.mark.parametrize("on_card", [True, False], ids=["cuda", "cpu"])
+def test_a_single_block_compress_pins_for_a_cuda_tensor_only(monkeypatch, on_card):
+    """The host route copies a CUDA tensor into one page-locked buffer; a
+    CPU tensor's bytes go to the codec as they are, with no buffer and no
+    copy, into tpu_blosc's frame."""
+    jo, to = _ramp_opts()
+    x = torch.from_numpy(RAMP.copy())
+    if on_card:
+        tensor_bytes = tdev.tensor_bytes
+        monkeypatch.setattr(tdev, "tensor_bytes", lambda t: _OnCard(tensor_bytes(t)))
+    seen = _buffer_spy(monkeypatch, stop=on_card)
+    if on_card:
+        with pytest.raises(_Stop):
+            tb.compress_array(x, to)
+        assert seen == [True]
+        return
+    handed = []
+    compress_with_options = tdev.compress_with_options
+    monkeypatch.setattr(tdev, "compress_with_options",
+                        lambda host, opts: handed.append(host) or compress_with_options(host, opts))
+    assert tb.compress_array(x, to) == jb.compress_with_options(RAMP.tobytes(), jo)
+    assert seen == [] and len(handed) == 1 and np.shares_memory(handed[0], x.numpy())
+
+
+@pytest.mark.parametrize("strategy", ["device", "transfer", "auto", "records"])
+@pytest.mark.parametrize("target", ["cuda", "cpu", "sharded"])
+def test_a_single_block_decode_pins_for_a_cuda_target_only(monkeypatch, strategy, target):
+    """Every strategy decodes a single-block frame on the host, into one
+    buffer: page-locked for a CUDA target, pageable for the CPU and for a
+    sharded decode (onto a CUDA mesh here), whose result is placed
+    later."""
+    from tpu_blosc_torch.dist import _sharded
+
+    _, to = _ramp_opts()
+    frame = tb.compress_array(torch.from_numpy(RAMP), to)
+    assert not tb.format.parse_header(frame).is_split
+    kw = {"device": "cpu"} if target == "cpu" else {"device": torch.device("cuda", 0)}
+    if target == "sharded":
+        monkeypatch.setattr(_sharded, "sharding_device", lambda sharding, device: device)
+        kw["sharding"] = "a CUDA mesh"
+    seen = _buffer_spy(monkeypatch, stop=target != "cpu")
+    if target == "cpu":
+        y = tb.decompress_array(frame, torch.float32, strategy=strategy, **kw)
+        assert y.numpy().tobytes() == RAMP.tobytes() and seen == [False]
+        return
+    with pytest.raises(_Stop):
+        tb.decompress_array(frame, torch.float32, strategy=strategy, **kw)
+    assert seen == [target == "cuda"]
+
+
 def _tree() -> dict:
     """Leaves of three sizes, two of them of one size, one a multi-block
     frame."""
@@ -201,6 +278,48 @@ def test_cuda_stage_buffers_are_pinned(monkeypatch, card):
     y = tb.decompress_array(frame, torch.float32, device=card, strategy="device")
     assert [b.is_pinned() for b in made] == [True]
     assert _same(y, x)
+
+
+def _made_buffers(monkeypatch) -> list:
+    """Every buffer ``device._host_buffer`` hands out."""
+    made = []
+    real = tdev._host_buffer
+    monkeypatch.setattr(tdev, "_host_buffer",
+                        lambda n, device: made.append(real(n, device)) or made[-1])
+    return made
+
+
+def test_cuda_single_block_round_trips_back_to_back(monkeypatch, card):
+    """200 round trips of the 1 MiB ramp on the host route: each frame is
+    the CPU route's (tpu_blosc's, by the CPU test above), each decode the
+    ramp, through two page-locked buffers a round trip."""
+    _, opts = _ramp_opts()
+    want = tb.compress_array(torch.from_numpy(RAMP), opts)
+    x = torch.from_numpy(RAMP).to(card)
+    made = _made_buffers(monkeypatch)
+    for _ in range(200):
+        frame = tb.compress_array(x, opts)
+        assert frame == want
+        y = tb.decompress_array(frame, torch.float32, device=card, strategy="device")
+        assert _same(y, x)
+    assert len(made) == 400 and all(b.is_pinned() for b in made)
+
+
+@pytest.mark.parametrize("strategy", ["device", "transfer"])
+def test_cuda_single_block_decodes_without_a_synchronise(card, strategy):
+    """Two decodes of one size issued back to back while the stream is held,
+    so that the first copy has not run when the second decode asks for a
+    buffer: the first tensor is its own frame's, not the second's."""
+    _, opts = _ramp_opts()
+    a, b = RAMP, (RAMP[::-1] * 3).copy()
+    fa = tb.compress_array(torch.from_numpy(a), opts)
+    fb = tb.compress_array(torch.from_numpy(b), opts)
+    for _ in range(3):
+        torch.cuda._sleep(20_000_000)  # hold the stream: the copies wait
+        ya = tb.decompress_array(fa, torch.float32, device=card, strategy=strategy)
+        yb = tb.decompress_array(fb, torch.float32, device=card, strategy=strategy)
+        torch.cuda.synchronize(card)
+        assert _same(ya.cpu(), torch.from_numpy(a)) and _same(yb.cpu(), torch.from_numpy(b))
 
 
 @pytest.mark.parametrize("codec", ["LZ4", "ZSTD"])

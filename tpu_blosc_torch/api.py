@@ -311,7 +311,9 @@ def decompress_into(data, out) -> int:
     """Decompress into a caller buffer; returns the bytes written.
 
     ``out`` is a bytearray, writable memoryview or contiguous ndarray.
-    Multi-block frames decode straight into it (≙ tpu_blosc/api.py:702-766).
+    Multi-block frames, and single-block frames of a native codec, decode
+    straight into it (≙ tpu_blosc/api.py:702-766); when such a decode
+    fails, its first ``n`` bytes may hold part of the data.
     """
     raw = _coerce_bytes(data)
     n = get_decompressed_size(raw)
@@ -336,6 +338,12 @@ def decompress_into(data, out) -> int:
                 raw, header, entries, offset, header.type_size, native[0],
                 out_addr=int(view.ctypes.data),
             )
+    elif _nb.available():
+        # a plain single-block frame of a native codec decodes straight into
+        # the buffer; the rest, and every error, take decompress_with_size
+        got = _nb.decompress_frames_into([raw], [view[:n]], _decode_native_map())[0]
+        if got is not None:
+            return got
     view[:n] = np.frombuffer(decompress_with_size(raw, 0), dtype=np.uint8)
     return n
 

@@ -21,12 +21,14 @@ takes the still-filtered stream to the device, and the device unfilters
 it, passing blocks that were stored raw through untouched.
 
 The two bulk copies of these routes, the filtered stream's to the host
-and back, go through page-locked host memory when the device is a CUDA
-device (``_host_buffer``, which alone decides): buffers of torch's caching
-host allocator, which hands a block out again once it is freed and its
-copies have completed, so a call of a size seen before allocates no host
-memory and faults in no page.  Elsewhere the buffers are ordinary
-(pageable) host memory.
+and back, and those of the host route that single-block, unfiltered and
+sub-block tensors take (whose decode writes straight into its buffer), go
+through page-locked host memory when the device is a CUDA device
+(``_host_buffer``, which alone decides): buffers of torch's caching host
+allocator, which hands a block out again once it is freed and its copies
+have completed, so a call of a size seen before allocates no host memory
+and faults in no page.  Elsewhere, and for a sharded decode, whose result
+is placed later, the buffers are ordinary (pageable) host memory.
 
 A codec registered with ``register_codec`` (a new ID, or one in place of
 a builtin) changes the host stage only: the filter still runs on the
@@ -160,7 +162,7 @@ def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str)
     use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
     if not use_chunked or not do_filter or nb_full == 0:
         with span("tpbt.compress.d2h"):
-            host = flat.cpu().numpy()
+            host = _fetch(flat).numpy()
         with span("tpbt.compress.codec"):
             return compress_with_options(host, opts)
     engage = {"match": _match.compress_array_match, "auto": _match.compress_array_match,
@@ -191,15 +193,21 @@ def _device_filter_fetch(flat: torch.Tensor, opts: Options, nb_full: int,
         )
         staged[body:] = flat[body:]
     with span("tpbt.compress.d2h"):  # the one device-to-host copy
-        if staged.device.type == "cpu":
-            host = staged
-        else:
-            host = _host_buffer(staged.numel(), staged.device)
-            host.copy_(staged)  # blocking: the host codec reads it next
-        host = host.numpy()
+        host = _fetch(staged).numpy()
     if host.size - body >= ts:
         with span("tpbt.compress.host_filter"):
             host[body:] = filters.filter_bytes(host[body:], ts, opts.shuffle)
+    return host
+
+
+def _fetch(flat: torch.Tensor) -> torch.Tensor:
+    """A flat host tensor's bytes as they are, or a device tensor's copied
+    into a ``_host_buffer`` for its device, blocking: the host codec reads
+    them next."""
+    if flat.device.type == "cpu":
+        return flat
+    host = _host_buffer(flat.numel(), flat.device)
+    host.copy_(flat)
     return host
 
 
@@ -289,10 +297,11 @@ def decompress_array(data, dtype: torch.dtype, shape=None, device=None, sharding
         elif strategy in ("rle", "records") and sharding is None:
             out = _records.decompress_array_records(data, n, target)
         if out is None:
-            out = host_decode(data, n)
+            # a sharded result is placed later, from pageable memory
+            out = host_decode(data, n, target if sharding is None else None)
             if sharding is None:
                 with span("tpbt.decompress.h2d"):
-                    out = out.to(target)
+                    out = out.to(target, non_blocking=True)
         out = out.view(dtype)
         if shape is not None:
             out = out.reshape(shape)
@@ -314,9 +323,12 @@ def checked_decode_size(data, dtype: torch.dtype) -> int:
 
 def host_decode(data, n: int, device: torch.device | None = None) -> torch.Tensor:
     """The host half of decompress_array's transfer route: the frame's
-    ``n`` bytes decoded into a fresh CPU uint8 tensor
+    ``n`` bytes decoded straight into a CPU uint8 tensor
     (≙ tpu_blosc/device.py:1525-1535), a buffer for a copy to ``device``
-    (``_host_buffer``: page-locked for a CUDA device)."""
+    (``_host_buffer``: page-locked for a CUDA device).  A copy out of it
+    may run ``non_blocking``: the caching host allocator hands the block
+    out again only once the copy has completed, and keeps page-locked
+    blocks up to the largest size a process has decoded."""
     with span("tpbt.decompress.codec"):
         host = _host_buffer(n, device)
         decompress_into(data, host.numpy())
