@@ -24,14 +24,15 @@ CUDA tensors are "device" records: a run of two or more goes through a
 k's host codec and file write (_compress_array_stage2), the two halves of
 compress_array, so the frames are compress_array's by construction.  CPU
 tensors and NumPy arrays are "host" records, compressed in batches of up
-to stream._BATCH_WINDOW_BYTES.  A load, onto the host or a device, takes
-its leaves in windows of consecutive records of at most as many bytes
-(stream._decoded_windows): one worker thread reads window w+1 with one
-read, another decodes window w into one slab (the single-block frames in
-one native batch call, multi-block frames that share codec, filter, type
-size and block size in one native block call), while this thread copies
-window w-1's leaves out of the slab, each into storage of its own on the
-target.  For a CUDA device the read buffers and slabs are page-locked
+to stream._BATCH_WINDOW_BYTES.  The writers count what they write in
+``saved``, as a load counts what it restores in ``restored``.  A load,
+onto the host or a device, takes its leaves in windows of consecutive
+records of at most as many bytes (stream._decoded_windows): one worker
+thread reads window w+1 with one read, another decodes window w into one
+slab (the single-block frames in one native batch call, multi-block
+frames that share codec, filter, type size and block size in one native
+block call), while this thread copies window w-1's leaves out of the
+slab, each into storage of its own on the target.  For a CUDA device the read buffers and slabs are page-locked
 buffers of torch's caching host allocator (device._host_buffer), each
 leaf's copy is queued on the stream without waiting for it, and a slab
 goes back to the allocator, which hands it out again only once those
@@ -62,10 +63,11 @@ import torch
 
 from . import dtypes
 from . import stream as _stream
-from .api import compress_batch_with_options
+from .api import _is_container, compress_batch_with_options, compress_with_options
 from .device import _compress_array_stage1, _compress_array_stage2, tensor_bytes
 from .errors import InvalidDataError
 from .filters import load_target
+from .format import FLAG_SPLIT
 from .options import Options
 from .stats import span
 from .stream import StreamReader, StreamWriter, _decoded_windows, _iter_prefetch
@@ -82,6 +84,18 @@ restored = {"leaves": 0, "bytes": 0, "multi_block_leaves": 0, "windows": 0}
 def reset_restored() -> None:
     for name in restored:
         restored[name] = 0
+
+
+# what the checkpoint writers wrote since the last reset_saved(): leaf
+# records, their tensor bytes, those written as "device" records, those
+# whose frame is multi-block, and the leaf records' frame bytes
+saved = {"leaves": 0, "bytes": 0, "device_leaves": 0, "multi_block_leaves": 0,
+         "frame_bytes": 0}
+
+
+def reset_saved() -> None:
+    for name in saved:
+        saved[name] = 0
 
 
 def _leaf_dtype(obj) -> tuple[torch.dtype, str]:
@@ -162,13 +176,33 @@ def _host_bytes(leaf) -> tuple[np.ndarray, int]:
     return arr.reshape(-1).view(np.uint8), arr.dtype.itemsize
 
 
+def _multi_block(frame: bytes) -> bool:
+    """A frame of more than one block: FLAG_SPLIT, or a TPB2 container."""
+    return _is_container(frame) or bool(frame[2] & FLAG_SPLIT)
+
+
 def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
                         strategy: str = "transfer") -> None:
     """Write ("host", leaf) and ("device", CUDA tensor) records, in order
-    (≙ tpu_blosc/checkpoint.py:114-196)."""
+    (≙ tpu_blosc/checkpoint.py:114-196), counting them in ``saved``.
+
+    On this thread it records ``tpbt.save_pytree.wait`` around each wait
+    for a device leaf's stage 1 (the worker's filter and copy; a run of
+    one leaf runs stage 1 there itself), ``tpbt.save_pytree.codec``
+    around stage 2 and each native batch of host leaves, and
+    ``tpbt.save_pytree.write`` around each record's write."""
     base = opts if opts is not None else Options()
     pending: list[tuple[np.ndarray, int]] = []
     pending_bytes = 0
+
+    def write(frame: bytes, nbytes: int, on_device: bool):
+        with span("tpbt.save_pytree.write"):
+            w.write_frame(frame)
+        saved["leaves"] += 1
+        saved["bytes"] += nbytes
+        saved["device_leaves"] += on_device
+        saved["multi_block_leaves"] += _multi_block(frame)
+        saved["frame_bytes"] += len(frame)
 
     def flush():
         nonlocal pending, pending_bytes
@@ -177,11 +211,12 @@ def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
             by_ts.setdefault(itemsize, []).append(k)
         frames: dict[int, bytes] = {}
         for itemsize, idxs in by_ts.items():
-            batch = compress_batch_with_options([pending[k][0] for k in idxs],
-                                                _leaf_opts(base, itemsize))
+            with span("tpbt.save_pytree.codec"):
+                batch = compress_batch_with_options([pending[k][0] for k in idxs],
+                                                    _leaf_opts(base, itemsize))
             frames.update(zip(idxs, batch))
-        for k in range(len(pending)):
-            w.write_frame(frames[k])
+        for k, (buf, _) in enumerate(pending):
+            write(frames[k], buf.nbytes, False)
         pending, pending_bytes = [], 0
 
     def write_device_run(run: list[torch.Tensor]):
@@ -189,11 +224,15 @@ def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
             return _compress_array_stage1(run[t], _leaf_opts(base, run[t].element_size()),
                                           strategy)
 
-        if len(run) == 1:
-            w.write_frame(_compress_array_stage2(stage1(0)))
-            return
-        for staged in _iter_prefetch(stage1, len(run), prefetch=1):
-            w.write_frame(_compress_array_stage2(staged))
+        # a lone leaf runs stage 1 on this thread, inside its wait
+        staged = (_iter_prefetch(stage1, len(run), prefetch=1) if len(run) > 1
+                  else map(stage1, range(1)))
+        for leaf in run:
+            with span("tpbt.save_pytree.wait"):
+                item = next(staged)
+            with span("tpbt.save_pytree.codec"):
+                frame = _compress_array_stage2(item)
+            write(frame, leaf.nbytes, True)
 
     records = list(records)
     i, n_rec = 0, len(records)
@@ -259,30 +298,41 @@ def save_pytree(path, tree, opts: Options | None = None, checksum: bool = False,
     gathered on this thread in leaf order, before any is written, and
     process 0 of the default group then writes the file (it holds every
     gathered leaf until then); the other processes write nothing.
+
+    While a profiler records, the call is the span ``tpbt.save_pytree``
+    (``stats.span``), with the stages ``tpbt.save_pytree.manifest`` (the
+    tree's walk, a DTensor leaf's gather, record 0's frame), ``.wait``,
+    ``.codec`` and ``.write`` (``_write_leaf_records``), all on the
+    calling thread.  The leaf records written are counted in ``saved``.
     """
     from .dist import _group, _sharded
 
-    leaves: list = []
-    skeleton = _encode(tree, leaves)
-    if any(_sharded.is_dtensor(lf) for lf in leaves):
-        writer = _group.rank() == 0
-        for i, lf in enumerate(leaves):
-            if _sharded.is_dtensor(lf):
-                full = _sharded.gather_full(lf)
-                leaves[i] = full if writer else None
-        if not writer:
-            return
-    manifest = json.dumps(
-        {"version": _MANIFEST_VERSION, "tree": skeleton, "leaves": len(leaves)}
-    ).encode()
-    with StreamWriter(path, opts, checksum=checksum) as w:
-        w.write(manifest, Options(type_size=1))
-        _write_leaf_records(
-            w,
-            (("device" if _on_cuda(lf) else "host", lf) for lf in leaves),
-            opts,
-            strategy=strategy,
-        )
+    with span("tpbt.save_pytree"):
+        with span("tpbt.save_pytree.manifest"):
+            leaves: list = []
+            skeleton = _encode(tree, leaves)
+            if any(_sharded.is_dtensor(lf) for lf in leaves):
+                writer = _group.rank() == 0
+                for i, lf in enumerate(leaves):
+                    if _sharded.is_dtensor(lf):
+                        full = _sharded.gather_full(lf)
+                        leaves[i] = full if writer else None
+                if not writer:
+                    return
+            manifest = json.dumps(
+                {"version": _MANIFEST_VERSION, "tree": skeleton, "leaves": len(leaves)}
+            ).encode()
+            # the frame StreamWriter.write gives record 0
+            record0 = compress_with_options(manifest, Options(type_size=1))
+        with StreamWriter(path, opts, checksum=checksum) as w:
+            with span("tpbt.save_pytree.write"):
+                w.write_frame(record0)
+            _write_leaf_records(
+                w,
+                (("device" if _on_cuda(lf) else "host", lf) for lf in leaves),
+                opts,
+                strategy=strategy,
+            )
 
 
 def _read_manifest(r: StreamReader) -> dict:

@@ -171,12 +171,21 @@ def trace(log_dir: str | None = None):
       around each leaf's copy to the target device.  The workers' own read
       and decode run on threads the profiler does not follow, so the
       waits are where their time shows.
+    - ``tpbt.save_pytree``: all of ``checkpoint.save_pytree``; inside it
+      ``tpbt.save_pytree.manifest`` (the tree's walk and record 0's
+      frame), one ``tpbt.save_pytree.wait`` around each wait for a CUDA
+      leaf's stage 1 (its filter and copy to host memory, on a worker
+      thread the profiler does not follow; a lone CUDA leaf runs it on the
+      calling thread, inside the wait), one ``tpbt.save_pytree.codec``
+      around each leaf's stage 2 and each native batch of host leaves, and
+      one ``tpbt.save_pytree.write`` around each record's write.
 
     A stage that does no work in a call records no span there (no tail,
     no raw block, a single-block frame).  The time a top span covers
     outside its stages is the entry point's own: options, header checks,
     views.  Checkpoint writers and the distributed entry points, which
-    call the stages directly, record the stages without a top span.
+    call the stages directly, record the stages without a top span
+    (``save_pytree_sharded``: its ``tpbt.save_pytree.*`` stages alone).
     """
     record: dict = {}
     prof = None
