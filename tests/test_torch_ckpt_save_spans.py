@@ -4,12 +4,15 @@ Under ``stats.trace`` a save records ``tpbt.save_pytree`` with its stages
 ``.manifest`` (once), ``.wait`` (one a CUDA leaf: here CPU tensors handed
 to the pipeline as CUDA leaves are, as ``test_torch_checkpoint.py`` does),
 ``.codec`` (one a CUDA leaf's stage 2 and one a native batch of host
-leaves) and ``.write`` (one a record, the manifest's too), all on the
-calling thread and inside the top span.  With no profiler recording,
-``record_function`` is never entered, and the file is the same either
-way.  ``checkpoint.saved`` counts the leaf records written.  The
-benchmark's readers of these spans read them from a real trace of the
-same save, and the reader of the save's copies picks them by time.
+leaves) and ``.write`` (one a record's hand-off to the writer thread, the
+manifest's too, and one the wait for the thread's last writes and the
+file's close), all on the calling thread and inside the top span.  With
+no profiler recording, ``record_function`` is never entered, and the
+file is the same either way.  ``checkpoint.saved`` counts the leaf
+records written, the hand-offs that found the writer's queue full, and
+the writer thread's time.  The benchmark's readers of these spans read
+them from a real trace of the same save, and the reader of the save's
+copies picks them by time.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ HOST_LEAVES = 2
 HOST_BATCHES = 2  # one native batch an element size
 MULTI_BLOCK = 1  # master/w: 4.5 MB
 LEAF_BYTES = 1100 * 1024 * (4 + 2) + 64 * 4 + 16 + 3000 * 4 + 50 * 2
+# a hand-off a record, the manifest's too, and the drain at the end
+WRITES = DEVICE_LEAVES + HOST_LEAVES + 1 + 1
 
 
 @pytest.fixture
@@ -90,7 +95,7 @@ def test_a_save_records_its_stages_on_its_thread_inside_the_save(tmp_path, as_de
     assert names.count(TOP) == names.count("tpbt.save_pytree.manifest") == 1
     assert names.count("tpbt.save_pytree.wait") == DEVICE_LEAVES
     assert names.count("tpbt.save_pytree.codec") == DEVICE_LEAVES + HOST_BATCHES
-    assert names.count("tpbt.save_pytree.write") == DEVICE_LEAVES + HOST_LEAVES + 1
+    assert names.count("tpbt.save_pytree.write") == WRITES
     assert set(names) == {TOP, *STAGES}
     (top,) = [e for e in marks if e["name"] == TOP]
     assert all(_inside(e, top) and e["tid"] == top["tid"] for e in marks if e is not top)
@@ -102,7 +107,7 @@ def test_the_host_route_records_no_wait(tmp_path):
     assert "tpbt.save_pytree.wait" not in names
     # every leaf a host leaf, in one flush: a batch a type size, 4, 2 and 8
     assert names.count("tpbt.save_pytree.codec") == 3
-    assert names.count("tpbt.save_pytree.write") == DEVICE_LEAVES + HOST_LEAVES + 1
+    assert names.count("tpbt.save_pytree.write") == WRITES
 
 
 @pytest.mark.parametrize("route", ["host", "device_pipeline"])
@@ -144,10 +149,13 @@ def test_the_counter_reads_what_was_written(tmp_path, monkeypatch, route):
         tb.save_pytree(path, _state())
     with StreamReader(path) as r:
         frame_bytes = sum(len(r.read_frame(i)) for i in range(1, len(r)))
+    # a few MB of frames never fill the writer's queue
     assert checkpoint.saved == {
         "leaves": 2 * (DEVICE_LEAVES + HOST_LEAVES), "bytes": 2 * LEAF_BYTES,
         "device_leaves": 2 * DEVICE_LEAVES * (route == "device_pipeline"),
-        "multi_block_leaves": 2 * MULTI_BLOCK, "frame_bytes": 2 * frame_bytes}
+        "multi_block_leaves": 2 * MULTI_BLOCK, "frame_bytes": 2 * frame_bytes,
+        "write_stalls": 0, "writer_ns": checkpoint.saved["writer_ns"]}
+    assert checkpoint.saved["writer_ns"] > 0
     checkpoint.reset_saved()
     assert set(checkpoint.saved.values()) == {0}
 

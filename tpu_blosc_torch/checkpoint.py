@@ -21,11 +21,15 @@ tensors, NumPy arrays (NumPy scalars become 0-d leaves) and JSON values
 CUDA tensors are "device" records: a run of two or more goes through a
 1-deep pipeline, leaf k+1's filter on the device and copy to the host
 (_compress_array_stage1) on a worker thread while this thread runs leaf
-k's host codec and file write (_compress_array_stage2), the two halves of
+k's host codec (_compress_array_stage2), the two halves of
 compress_array, so the frames are compress_array's by construction.  CPU
 tensors and NumPy arrays are "host" records, compressed in batches of up
-to stream._BATCH_WINDOW_BYTES.  The writers count what they write in
-``saved``, as a load counts what it restores in ``restored``.  A load,
+to stream._BATCH_WINDOW_BYTES.  Both writers hand their frames to one
+writer thread (_WriteBehind), which opens the file (truncating an old
+one), writes the records in order, the footer, and closes it while the
+caller compresses; the call returns once the file is closed.  The
+writers count what they write in ``saved``, as a load counts what it
+restores in ``restored``.  A load,
 onto the host or a device, takes its leaves in windows of consecutive
 records of at most as many bytes (stream._decoded_windows): one worker
 thread reads window w+1 with one read, another decodes window w into one
@@ -56,7 +60,11 @@ one process.
 
 from __future__ import annotations
 
+import collections
 import json
+import os
+import threading
+import time
 
 import numpy as np
 import torch
@@ -88,9 +96,11 @@ def reset_restored() -> None:
 
 # what the checkpoint writers wrote since the last reset_saved(): leaf
 # records, their tensor bytes, those written as "device" records, those
-# whose frame is multi-block, and the leaf records' frame bytes
+# whose frame is multi-block, the leaf records' frame bytes, the hand-offs
+# to the writer thread that found its queue full and waited, and the
+# nanoseconds the writer thread spent opening, writing and closing files
 saved = {"leaves": 0, "bytes": 0, "device_leaves": 0, "multi_block_leaves": 0,
-         "frame_bytes": 0}
+         "frame_bytes": 0, "write_stalls": 0, "writer_ns": 0}
 
 
 def reset_saved() -> None:
@@ -181,16 +191,130 @@ def _multi_block(frame: bytes) -> bool:
     return _is_container(frame) or bool(frame[2] & FLAG_SPLIT)
 
 
-def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
+# the most frame bytes a checkpoint's writer thread holds, queued or being
+# written; a larger frame waits until the queue is empty.  It covers what
+# the codec makes while the thread opens the file: truncating an old file
+# of gigabytes can take over a second, and the codec makes frames at more
+# than 1 GB/s
+_WRITE_BEHIND_BYTES = 2 << 30
+
+
+class _WriteBehind:
+    """A checkpoint file written on a thread of its own.
+
+    The thread opens ``StreamWriter(path, opts, checksum=checksum)`` (the
+    open truncates an old file), writes each frame handed to write_frame,
+    in order, then the footer, and closes the file, while the caller goes
+    on.  write_frame waits only while the frames held would pass
+    _WRITE_BEHIND_BYTES, counting each such hand-off in
+    ``saved["write_stalls"]``; close() waits until the file is closed.  An
+    error on the thread is raised on the caller, at its next write_frame
+    or at close().  Leaving the ``with`` block by an exception stops the
+    thread, which drops the frames still queued and closes the file.
+    Either way the thread has ended when the block is left, and the time
+    it spent in the open, the writes and the close (not waiting for
+    frames) is added to ``saved["writer_ns"]``."""
+
+    def __init__(self, path, opts: Options | None, checksum: bool):
+        self._cv = threading.Condition()
+        self._frames: collections.deque[bytes] = collections.deque()
+        self._held = 0  # bytes of the frames queued or being written
+        self._closing = False
+        self._stopped = False
+        self._error: BaseException | None = None
+        self._ns = 0
+        self._thread = threading.Thread(target=self._run, name="tpbt-checkpoint-writer",
+                                        args=(os.fspath(path), opts, checksum), daemon=True)
+        self._thread.start()
+
+    def _timed(self, call, *args):
+        """call(*args), its time added to the thread's (not its waits)."""
+        t0 = time.perf_counter_ns()
+        try:
+            return call(*args)
+        finally:
+            self._ns += time.perf_counter_ns() - t0
+
+    def _run(self, path: str, opts: Options | None, checksum: bool) -> None:
+        try:
+            w = self._timed(lambda: StreamWriter(path, opts, checksum=checksum))
+            try:
+                while True:
+                    with self._cv:
+                        self._cv.wait_for(lambda: self._frames or self._closing or self._stopped)
+                        if self._stopped or not self._frames:
+                            break
+                        frame = self._frames[0]
+                    self._timed(w.write_frame, frame)
+                    with self._cv:
+                        self._frames.popleft()
+                        self._held -= len(frame)
+                        self._cv.notify_all()
+            finally:
+                self._timed(w.close)
+        except BaseException as exc:  # raised on the caller
+            with self._cv:
+                self._error = exc
+                self._cv.notify_all()
+
+    def write_frame(self, frame: bytes) -> None:
+        n = len(frame)
+
+        def room() -> bool:  # a frame larger than the bound waits for an empty queue
+            return (not self._held or self._held + n <= _WRITE_BEHIND_BYTES
+                    or self._error is not None)
+
+        with self._cv:
+            if not room():
+                saved["write_stalls"] += 1
+                self._cv.wait_for(room)
+            if self._error is not None:
+                raise self._error
+            self._frames.append(frame)
+            self._held += n
+            self._cv.notify_all()
+
+    def close(self) -> None:
+        """Wait for the thread to write the frames queued and the footer
+        and to close the file."""
+        with self._cv:
+            self._closing = True
+            self._cv.notify_all()
+        self._join()
+        if self._error is not None:
+            raise self._error
+
+    def _join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+            saved["writer_ns"] += self._ns
+
+    def __enter__(self) -> "_WriteBehind":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            self.close()
+            return
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        self._join()
+
+
+def _write_leaf_records(w, records, opts: Options | None,
                         strategy: str = "transfer") -> None:
     """Write ("host", leaf) and ("device", CUDA tensor) records, in order
-    (≙ tpu_blosc/checkpoint.py:114-196), counting them in ``saved``.
+    (≙ tpu_blosc/checkpoint.py:114-196), through ``w.write_frame`` (a
+    _WriteBehind or a StreamWriter), counting them in ``saved``.
 
     On this thread it records ``tpbt.save_pytree.wait`` around each wait
     for a device leaf's stage 1 (the worker's filter and copy; a run of
     one leaf runs stage 1 there itself), ``tpbt.save_pytree.codec``
     around stage 2 and each native batch of host leaves, and
-    ``tpbt.save_pytree.write`` around each record's write."""
+    ``tpbt.save_pytree.write`` around each record's write_frame (for a
+    _WriteBehind, the hand-off)."""
     base = opts if opts is not None else Options()
     pending: list[tuple[np.ndarray, int]] = []
     pending_bytes = 0
@@ -226,13 +350,16 @@ def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
 
         # a lone leaf runs stage 1 on this thread, inside its wait
         staged = (_iter_prefetch(stage1, len(run), prefetch=1) if len(run) > 1
-                  else map(stage1, range(1)))
-        for leaf in run:
-            with span("tpbt.save_pytree.wait"):
-                item = next(staged)
-            with span("tpbt.save_pytree.codec"):
-                frame = _compress_array_stage2(item)
-            write(frame, leaf.nbytes, True)
+                  else (stage1(t) for t in range(1)))
+        try:
+            for leaf in run:
+                with span("tpbt.save_pytree.wait"):
+                    item = next(staged)
+                with span("tpbt.save_pytree.codec"):
+                    frame = _compress_array_stage2(item)
+                write(frame, leaf.nbytes, True)
+        finally:
+            staged.close()  # on an error the worker stops now, not with the traceback
 
     records = list(records)
     i, n_rec = 0, len(records)
@@ -253,6 +380,21 @@ def _write_leaf_records(w: StreamWriter, records, opts: Options | None,
         write_device_run([d for _, d in records[i:j]])
         i = j
     flush()
+
+
+def _write_checkpoint(path, record0: bytes, records, opts: Options | None, checksum: bool,
+                      strategy: str = "transfer") -> None:
+    """Write a checkpoint file, record 0's frame then the leaf
+    ``records`` (_write_leaf_records), through one _WriteBehind; return
+    once the file is closed.  ``tpbt.save_pytree.write`` wraps record 0's
+    hand-off and the wait for the thread's last writes, the footer and
+    the close."""
+    with _WriteBehind(path, opts, checksum) as w:
+        with span("tpbt.save_pytree.write"):
+            w.write_frame(record0)
+        _write_leaf_records(w, records, opts, strategy=strategy)
+        with span("tpbt.save_pytree.write"):
+            w.close()
 
 
 def _collect_leaf_specs(tree, n_leaves: int):
@@ -302,8 +444,12 @@ def save_pytree(path, tree, opts: Options | None = None, checksum: bool = False,
     While a profiler records, the call is the span ``tpbt.save_pytree``
     (``stats.span``), with the stages ``tpbt.save_pytree.manifest`` (the
     tree's walk, a DTensor leaf's gather, record 0's frame), ``.wait``,
-    ``.codec`` and ``.write`` (``_write_leaf_records``), all on the
-    calling thread.  The leaf records written are counted in ``saved``.
+    ``.codec`` and ``.write`` (``_write_checkpoint``), all on the calling
+    thread.  The file's open, its writes and its close run on a writer
+    thread (_WriteBehind): ``.write`` is each hand-off of a frame to it,
+    which waits only while its queue is full, and the wait for its last
+    writes and the close.  The leaf records written, the full-queue
+    hand-offs and the writer thread's time are counted in ``saved``.
     """
     from .dist import _group, _sharded
 
@@ -324,15 +470,9 @@ def save_pytree(path, tree, opts: Options | None = None, checksum: bool = False,
             ).encode()
             # the frame StreamWriter.write gives record 0
             record0 = compress_with_options(manifest, Options(type_size=1))
-        with StreamWriter(path, opts, checksum=checksum) as w:
-            with span("tpbt.save_pytree.write"):
-                w.write_frame(record0)
-            _write_leaf_records(
-                w,
-                (("device" if _on_cuda(lf) else "host", lf) for lf in leaves),
-                opts,
-                strategy=strategy,
-            )
+        _write_checkpoint(path, record0,
+                          (("device" if _on_cuda(lf) else "host", lf) for lf in leaves),
+                          opts, checksum, strategy)
 
 
 def _read_manifest(r: StreamReader) -> dict:
@@ -572,9 +712,10 @@ def save_pytree_sharded(path_prefix, tree, opts: Options | None = None,
         "leaf_records": manifest_leaves,
         "process": pid,
     }).encode()
-    with StreamWriter(f"{path_prefix}.p{pid}.tpbs", opts, checksum=checksum) as w:
-        w.write(manifest, Options(type_size=1))
-        _write_leaf_records(w, records, opts)
+    # record 0: the frame StreamWriter.write gives the manifest
+    _write_checkpoint(f"{path_prefix}.p{pid}.tpbs",
+                      compress_with_options(manifest, Options(type_size=1)), records, opts,
+                      checksum)
 
 
 class _ShardedSet:
