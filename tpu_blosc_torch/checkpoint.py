@@ -97,10 +97,12 @@ def reset_restored() -> None:
 # what the checkpoint writers wrote since the last reset_saved(): leaf
 # records, their tensor bytes, those written as "device" records, those
 # whose frame is multi-block, the leaf records' frame bytes, the hand-offs
-# to the writer thread that found its queue full and waited, and the
-# nanoseconds the writer thread spent opening, writing and closing files
+# to the writer thread that found its queue full and waited, the
+# nanoseconds the writer thread spent opening, writing and closing files,
+# and the records of sharded leaves (a DTensor's local shard) that
+# save_pytree_sharded wrote in this process
 saved = {"leaves": 0, "bytes": 0, "device_leaves": 0, "multi_block_leaves": 0,
-         "frame_bytes": 0, "write_stalls": 0, "writer_ns": 0}
+         "frame_bytes": 0, "write_stalls": 0, "writer_ns": 0, "shard_records": 0}
 
 
 def reset_saved() -> None:
@@ -677,45 +679,57 @@ def save_pytree_sharded(path_prefix, tree, opts: Options | None = None,
     device, as compress_array does), and the global dtype and shape and
     the shards' spans in the manifest.  Replicated leaves and host values
     are written by process 0 only.  load_pytree_sharded reassembles from
-    all files.
+    all files.  The file goes through the pipeline save_pytree takes
+    (_write_checkpoint): no collective runs, so every process saves at its
+    own pace.
+
+    While a profiler records, the call is the span
+    ``tpbt.save_pytree_sharded`` (``stats.span``), with the stages
+    ``tpbt.save_pytree_sharded.manifest`` (the tree's walk, each shard's
+    span check, record 0's frame) and save_pytree's ``tpbt.save_pytree.wait``,
+    ``.codec`` and ``.write`` (``_write_checkpoint``), all on the calling
+    thread.  Besides what ``saved`` counts of every save, the records of
+    sharded leaves this process wrote are counted in
+    ``saved["shard_records"]``.
     """
     from .dist import _group
     from .dist._sharded import shard_span
 
-    pid = _group.rank()
-    leaves: list = []
-    skeleton = _encode_sharded(tree, leaves, pid)
-    records: list = []
-    manifest_leaves = []
-    for kind, obj in leaves:
-        if kind == "replicated":
-            manifest_leaves.append({"k": "replicated", "n": 1 if obj is not None else 0})
-            if obj is not None:
-                records.append(("device" if _on_cuda(obj) else "host", obj))
-            continue
-        span, writer = shard_span(obj)
-        local = obj.to_local()
-        if tuple(local.shape) != tuple(b - a for a, b in span):
-            raise ValueError(
-                f"a DTensor's local shard is {tuple(local.shape)}, its placements "
-                f"{obj.placements} give the span {span}"
-            )
-        # an empty shard (uneven split) and a replica are no record
-        spans = [span] if writer and local.numel() else []
-        manifest_leaves.append({"k": "sharded", "n": len(spans), "spans": spans})
-        if spans:
-            records.append(("device" if _on_cuda(local) else "host", local))
-
-    manifest = json.dumps({
-        "version": _MANIFEST_VERSION,
-        "tree": skeleton,
-        "leaf_records": manifest_leaves,
-        "process": pid,
-    }).encode()
-    # record 0: the frame StreamWriter.write gives the manifest
-    _write_checkpoint(f"{path_prefix}.p{pid}.tpbs",
-                      compress_with_options(manifest, Options(type_size=1)), records, opts,
-                      checksum)
+    with span("tpbt.save_pytree_sharded"):
+        with span("tpbt.save_pytree_sharded.manifest"):
+            pid = _group.rank()
+            leaves: list = []
+            skeleton = _encode_sharded(tree, leaves, pid)
+            records: list = []
+            manifest_leaves = []
+            for kind, obj in leaves:
+                if kind == "replicated":
+                    manifest_leaves.append({"k": "replicated", "n": 1 if obj is not None else 0})
+                    if obj is not None:
+                        records.append(("device" if _on_cuda(obj) else "host", obj))
+                    continue
+                piece, writer = shard_span(obj)
+                local = obj.to_local()
+                if tuple(local.shape) != tuple(b - a for a, b in piece):
+                    raise ValueError(
+                        f"a DTensor's local shard is {tuple(local.shape)}, its placements "
+                        f"{obj.placements} give the span {piece}"
+                    )
+                # an empty shard (uneven split) and a replica are no record
+                spans = [piece] if writer and local.numel() else []
+                manifest_leaves.append({"k": "sharded", "n": len(spans), "spans": spans})
+                if spans:
+                    records.append(("device" if _on_cuda(local) else "host", local))
+            manifest = json.dumps({
+                "version": _MANIFEST_VERSION,
+                "tree": skeleton,
+                "leaf_records": manifest_leaves,
+                "process": pid,
+            }).encode()
+            # record 0: the frame StreamWriter.write gives the manifest
+            record0 = compress_with_options(manifest, Options(type_size=1))
+        _write_checkpoint(f"{path_prefix}.p{pid}.tpbs", record0, records, opts, checksum)
+    saved["shard_records"] += sum(m["n"] for m in manifest_leaves if m["k"] == "sharded")
 
 
 class _ShardedSet:

@@ -179,13 +179,18 @@ def trace(log_dir: str | None = None):
       calling thread, inside the wait), one ``tpbt.save_pytree.codec``
       around each leaf's stage 2 and each native batch of host leaves, and
       one ``tpbt.save_pytree.write`` around each record's write.
+    - ``tpbt.save_pytree_sharded``: all of
+      ``checkpoint.save_pytree_sharded``; inside it
+      ``tpbt.save_pytree_sharded.manifest`` (the tree's walk, the shards'
+      span checks and record 0's frame) and save_pytree's ``.wait``,
+      ``.codec`` and ``.write`` stages, under their ``tpbt.save_pytree.*``
+      names.
 
     A stage that does no work in a call records no span there (no tail,
     no raw block, a single-block frame).  The time a top span covers
     outside its stages is the entry point's own: options, header checks,
     views.  Checkpoint writers and the distributed entry points, which
-    call the stages directly, record the stages without a top span
-    (``save_pytree_sharded``: its ``tpbt.save_pytree.*`` stages alone).
+    call the stages directly, record the stages without a top span.
     """
     record: dict = {}
     prof = None
