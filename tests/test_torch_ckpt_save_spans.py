@@ -154,7 +154,9 @@ def test_the_counter_reads_what_was_written(tmp_path, monkeypatch, route):
         "leaves": 2 * (DEVICE_LEAVES + HOST_LEAVES), "bytes": 2 * LEAF_BYTES,
         "device_leaves": 2 * DEVICE_LEAVES * (route == "device_pipeline"),
         "multi_block_leaves": 2 * MULTI_BLOCK, "frame_bytes": 2 * frame_bytes,
-        "write_stalls": 0, "writer_ns": checkpoint.saved["writer_ns"], "shard_records": 0}
+        "write_stalls": 0, "writer_ns": checkpoint.saved["writer_ns"], "shard_records": 0,
+        # one multi-block leaf: no window of two
+        "codec_windows": 0, "windowed_leaves": 0}
     assert checkpoint.saved["writer_ns"] > 0
     checkpoint.reset_saved()
     assert set(checkpoint.saved.values()) == {0}

@@ -19,10 +19,15 @@ tensors, NumPy arrays (NumPy scalars become 0-d leaves) and JSON values
     gpu = checkpoint.load_pytree(path, device=True)  # on the current GPU
 
 CUDA tensors are "device" records: a run of two or more goes through a
-1-deep pipeline, leaf k+1's filter on the device and copy to the host
-(_compress_array_stage1) on a worker thread while this thread runs leaf
-k's host codec (_compress_array_stage2), the two halves of
-compress_array, so the frames are compress_array's by construction.  CPU
+1-deep pipeline, unit k+1's filter on the device and copy to the host
+(stage 1) on a worker thread while this thread runs unit k's host codec
+(stage 2).  A unit is a leaf alone (_compress_array_stage1 and
+_compress_array_stage2, the two halves of compress_array) or a window of
+consecutive leaves (_device_units) whose full blocks stage 1 lays one
+after another in a host slab and stage 2 compresses in one native call,
+so that every core has blocks to compress (device._window_stage2); a
+block's payload depends on its own bytes alone, so the frames are
+compress_array's either way.  CPU
 tensors and NumPy arrays are "host" records, compressed in batches of up
 to stream._BATCH_WINDOW_BYTES.  Both writers hand their frames to one
 writer thread (_WriteBehind), which opens the file (truncating an old
@@ -63,6 +68,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import queue
 import threading
 import time
 
@@ -72,7 +78,16 @@ import torch
 from . import dtypes
 from . import stream as _stream
 from .api import _is_container, compress_batch_with_options, compress_with_options
-from .device import _compress_array_stage1, _compress_array_stage2, tensor_bytes
+from .chunk import native_pipeline_codec
+from .device import (
+    _compress_array_stage1,
+    _compress_array_stage2,
+    _host_buffer,
+    _stage1_route,
+    _window_fetch,
+    _window_stage2,
+    tensor_bytes,
+)
 from .errors import InvalidDataError
 from .filters import load_target
 from .format import FLAG_SPLIT
@@ -99,10 +114,13 @@ def reset_restored() -> None:
 # whose frame is multi-block, the leaf records' frame bytes, the hand-offs
 # to the writer thread that found its queue full and waited, the
 # nanoseconds the writer thread spent opening, writing and closing files,
-# and the records of sharded leaves (a DTensor's local shard) that
-# save_pytree_sharded wrote in this process
+# the records of sharded leaves (a DTensor's local shard) that
+# save_pytree_sharded wrote in this process, the windows of device leaves
+# whose full blocks one native call compressed, and the leaves whose full
+# blocks those calls compressed
 saved = {"leaves": 0, "bytes": 0, "device_leaves": 0, "multi_block_leaves": 0,
-         "frame_bytes": 0, "write_stalls": 0, "writer_ns": 0, "shard_records": 0}
+         "frame_bytes": 0, "write_stalls": 0, "writer_ns": 0, "shard_records": 0,
+         "codec_windows": 0, "windowed_leaves": 0}
 
 
 def reset_saved() -> None:
@@ -305,6 +323,84 @@ class _WriteBehind:
         self._join()
 
 
+# a save compresses the full blocks of a window of consecutive device
+# leaves, up to this many bytes, in one native call (device._window_stage2);
+# two slabs of this size at most are held, one that stage 1 fills while
+# stage 2 compresses the other
+_SAVE_WINDOW_BYTES = 256 << 20
+
+
+def _device_units(run: list[torch.Tensor], leaf_opts: list[Options], strategy: str) -> list:
+    """A run of device leaves cut into stage-1 units, in record order:
+    ``([i], None)`` for leaf i alone (compress_array's two halves), or
+    ``(indices, routes)`` for a window of two or more consecutive
+    "transfer" leaves (their _Routes) that share the options and the block
+    size and have full blocks of at most _SAVE_WINDOW_BYTES in all.  Any
+    other leaf is alone: a single-block one, one with a registered codec or
+    an engaged strategy, one whose full blocks pass the window, and one
+    with no partner."""
+    units: list = []
+    window: list[int] = []
+    routes: list = []
+    key, held = None, 0
+
+    def close():
+        nonlocal window, routes, key, held
+        if len(window) > 1:
+            units.append((window, routes))
+        else:
+            units.extend(([i], None) for i in window)
+        window, routes, key, held = [], [], None, 0
+
+    for i, x in enumerate(run):
+        route = _stage1_route(x, leaf_opts[i], strategy)
+        body = route.nb_full * route.block_size
+        if (route.kind != "transfer" or body > _SAVE_WINDOW_BYTES
+                or native_pipeline_codec(route.opts.codec, route.opts.level) is None):
+            close()
+            units.append(([i], None))
+            continue
+        if window and ((route.opts, route.block_size) != key
+                       or held + body > _SAVE_WINDOW_BYTES):
+            close()
+        window.append(i)
+        routes.append(route)
+        key, held = (route.opts, route.block_size), held + body
+    close()
+    return units
+
+
+class _Slabs:
+    """The host slabs of a run's windows: two at most, of ``nbytes``
+    each, made for the first window's device (device._host_buffer:
+    page-locked for a CUDA device) when first taken.  take() waits until
+    stage 2 gives one back, or raises once close() is called."""
+
+    def __init__(self, nbytes: int):
+        self._nbytes = nbytes
+        self._free: queue.Queue = queue.Queue()
+        for _ in range(2):
+            self._free.put(None)
+        self._closed = threading.Event()
+
+    def take(self, device: torch.device) -> torch.Tensor:
+        while not self._closed.is_set():
+            try:
+                slab = self._free.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            return slab if slab is not None else _host_buffer(self._nbytes, device)
+        raise RuntimeError("the save stopped")
+
+    def give(self, slab: torch.Tensor) -> None:
+        self._free.put(slab)
+
+    def close(self) -> None:
+        self._closed.set()
+        while not self._free.empty():
+            self._free.get()
+
+
 def _write_leaf_records(w, records, opts: Options | None,
                         strategy: str = "transfer") -> None:
     """Write ("host", leaf) and ("device", CUDA tensor) records, in order
@@ -312,11 +408,12 @@ def _write_leaf_records(w, records, opts: Options | None,
     _WriteBehind or a StreamWriter), counting them in ``saved``.
 
     On this thread it records ``tpbt.save_pytree.wait`` around each wait
-    for a device leaf's stage 1 (the worker's filter and copy; a run of
-    one leaf runs stage 1 there itself), ``tpbt.save_pytree.codec``
-    around stage 2 and each native batch of host leaves, and
-    ``tpbt.save_pytree.write`` around each record's write_frame (for a
-    _WriteBehind, the hand-off)."""
+    for a unit's stage 1 (a leaf's or a window's: the worker's filter and
+    copy; a run of one unit runs stage 1 there itself),
+    ``tpbt.save_pytree.codec`` around a unit's stage 2 and each native
+    batch of host leaves, and ``tpbt.save_pytree.write`` around each
+    record's write_frame (for a _WriteBehind, the hand-off).  Windows and
+    their leaves are counted in ``saved``."""
     base = opts if opts is not None else Options()
     pending: list[tuple[np.ndarray, int]] = []
     pending_bytes = 0
@@ -346,21 +443,43 @@ def _write_leaf_records(w, records, opts: Options | None,
         pending, pending_bytes = [], 0
 
     def write_device_run(run: list[torch.Tensor]):
-        def stage1(t: int):
-            return _compress_array_stage1(run[t], _leaf_opts(base, run[t].element_size()),
-                                          strategy)
+        leaf_opts = [_leaf_opts(base, x.element_size()) for x in run]
+        units = _device_units(run, leaf_opts, strategy)
+        slabs = _Slabs(max((sum(r.nb_full * r.block_size for r in routes)
+                            for _, routes in units if routes is not None), default=0))
 
-        # a lone leaf runs stage 1 on this thread, inside its wait
-        staged = (_iter_prefetch(stage1, len(run), prefetch=1) if len(run) > 1
-                  else (stage1(t) for t in range(1)))
+        def stage1(u: int):
+            idx, routes = units[u]
+            if routes is None:
+                return _compress_array_stage1(run[idx[0]], leaf_opts[idx[0]], strategy)
+            slab = slabs.take(run[idx[0]].device)
+            tails, off = [], 0
+            for i, route in zip(idx, routes):
+                body = route.nb_full * route.block_size
+                tails.append(_window_fetch(run[i], route, slab[off : off + body]))
+                off += body
+            return slab, off, tails
+
+        # a lone unit runs stage 1 on this thread, inside its wait
+        staged = (_iter_prefetch(stage1, len(units), prefetch=1) if len(units) > 1
+                  else (stage1(u) for u in range(1)))
         try:
-            for leaf in run:
+            for idx, routes in units:
                 with span("tpbt.save_pytree.wait"):
                     item = next(staged)
                 with span("tpbt.save_pytree.codec"):
-                    frame = _compress_array_stage2(item)
-                write(frame, leaf.nbytes, True)
+                    if routes is None:
+                        frames = [_compress_array_stage2(item)]
+                    else:
+                        slab, used, tails = item
+                        frames = _window_stage2(slab[:used].numpy(), routes, tails)
+                        slabs.give(slab)
+                        saved["codec_windows"] += 1
+                        saved["windowed_leaves"] += len(routes)
+                for i, frame in zip(idx, frames):
+                    write(frame, run[i].nbytes, True)
         finally:
+            slabs.close()  # a worker waiting for a slab stops
             staged.close()  # on an error the worker stops now, not with the traceback
 
     records = list(records)

@@ -268,13 +268,20 @@ def assemble_payload_frame(opts: Options, n: int, block_size: int,
 
 def assemble_split_frame(opts: Options, n: int, block_size: int,
                          slots: np.ndarray, slot: int, sizes: np.ndarray,
-                         memcpy_flags: np.ndarray) -> bytes:
-    """Header, block table and payloads of ``compress_slots``' output."""
+                         memcpy_flags: np.ndarray, tail=None) -> bytes:
+    """Header, block table and payloads of ``compress_slots``' output;
+    ``tail``, a (payload, memcpy flag) pair, is a last block compressed
+    apart from the others."""
     entries = [
         int(s) | (ENTRY_MEMCPY if m else 0) for s, m in zip(sizes, memcpy_flags)
     ]
-    prefix = split_header(opts, n, block_size, entries, int(sizes.sum()))
-    return _native.gather_frame(prefix, slots, slot, sizes)
+    payload_bytes = int(sizes.sum())
+    if tail is not None:
+        entries.append(tail[0].size | (ENTRY_MEMCPY if tail[1] else 0))
+        payload_bytes += tail[0].size
+    prefix = split_header(opts, n, block_size, entries, payload_bytes)
+    return _native.gather_frame(prefix, slots, slot, sizes,
+                                None if tail is None else tail[0])
 
 
 def parse_block_table(raw: bytes, header: Header) -> tuple[list[tuple[int, bool]], int]:

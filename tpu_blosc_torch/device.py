@@ -14,7 +14,10 @@ native codec writes a FLAG_SPLIT frame.  The frames are byte-identical to
 on the device is an execution choice, never a format choice.
 ``compress_array`` is ``_compress_array_stage2(_compress_array_stage1(...))``
 (≙ tpu_blosc/device.py:717-726), so checkpoint writers that pipeline the
-two halves write the same frames by construction.
+two halves write the same frames by construction.  A save's windows
+(``_window_fetch``, ``_window_stage2``) split the halves otherwise: the
+full blocks of several tensors, filtered on the device, are compressed in
+one native call, and each tensor's frame is the one compress_array writes.
 
 Decompress ("device"): the host decodes the codec stage only, one copy
 takes the still-filtered stream to the device, and the device unfilters
@@ -68,6 +71,7 @@ span (≙ tpu_blosc/device.py:1499-1535, ``jax.device_put(out, sharding)``).
 from __future__ import annotations
 
 from dataclasses import replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -134,6 +138,56 @@ def compress_array(x: torch.Tensor, opts: Options | None = None,
         return _compress_array_stage2(_compress_array_stage1(x, opts, strategy))
 
 
+class _Route(NamedTuple):
+    """What stage 1 makes of a tensor, decided from its dtype and size:
+    the options it is compressed with, its byte count, the block size, its
+    full blocks, and ``kind``: "host" (single-block, unfiltered and
+    sub-block tensors: the host route), "strategy" (the match or the rle
+    strategy engages, or falls back to the transfer route) or "transfer"."""
+
+    opts: Options
+    n: int
+    block_size: int
+    nb_full: int
+    kind: str
+
+
+def _strategy_encoder(strategy: str, opts: Options):
+    """The match or rle encoder that ``strategy`` engages for ``opts``, or
+    None.  The strategies emit the native LZ4 format: not for a registered
+    override."""
+    engage = {"match": _match.compress_array_match, "auto": _match.compress_array_match,
+              "rle": _rle.compress_array_rle}.get(strategy)
+    if (engage is not None and opts.codec in (Codec.LZ4, Codec.LZ4HC)
+            and native_pipeline_codec(opts.codec, opts.level) is not None):
+        return engage
+    return None
+
+
+def _stage1_route(x: torch.Tensor, opts: Options | None, strategy: str) -> _Route:
+    """The _Route of a plain (not sharded) tensor; nothing runs on its
+    device.  ``opts.type_size`` left at the default (4) takes the dtype's
+    element size (≙ tpu_blosc/device.py:740-747)."""
+    if opts is None:
+        opts = Options()
+    itemsize = x.element_size()
+    if opts.type_size == Options().type_size and itemsize != opts.type_size:
+        opts = replace(opts, type_size=itemsize)
+    opts = opts.clamped()
+    n = x.numel() * itemsize
+    block_size = choose_block_size(n, opts.type_size, opts.block_size)
+    nb_full = n // block_size
+    do_filter = opts.shuffle != Shuffle.NOSHUFFLE and opts.type_size > 1
+    use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
+    if not use_chunked or not do_filter or nb_full == 0:
+        kind = "host"
+    elif _strategy_encoder(strategy, opts) is not None:
+        kind = "strategy"
+    else:
+        kind = "transfer"
+    return _Route(opts, n, block_size, nb_full, kind)
+
+
 def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str):
     """The device and copy half of compress_array: the finished frame
     (bytes) when the tensor took the host route or the match or the rle
@@ -145,32 +199,17 @@ def _compress_array_stage1(x: torch.Tensor, opts: Options | None, strategy: str)
 
     if _sharded.is_dtensor(x):
         x = _sharded.gather_full(x)
-    if opts is None:
-        opts = Options()
-    itemsize = x.element_size()
-    if opts.type_size == Options().type_size and itemsize != opts.type_size:
-        opts = replace(opts, type_size=itemsize)
-    opts = opts.clamped()
-
-    flat = tensor_bytes(x)
-    n = flat.numel()
+    opts, n, block_size, nb_full, kind = _stage1_route(x, opts, strategy)
     if n == 0:
         raise InvalidDataError("blosc: invalid compressed data: empty input")
-    block_size = choose_block_size(n, opts.type_size, opts.block_size)
-    nb_full = n // block_size
-    do_filter = opts.shuffle != Shuffle.NOSHUFFLE and opts.type_size > 1
-    use_chunked = opts.block_size > 0 or n > AUTO_BLOCK_THRESHOLD
-    if not use_chunked or not do_filter or nb_full == 0:
+    flat = tensor_bytes(x)
+    if kind == "host":
         with span("tpbt.compress.d2h"):
             host = _fetch(flat).numpy()
         with span("tpbt.compress.codec"):
             return compress_with_options(host, opts)
-    engage = {"match": _match.compress_array_match, "auto": _match.compress_array_match,
-              "rle": _rle.compress_array_rle}.get(strategy)
-    # the strategies emit the native LZ4 format: not for a registered override
-    if (engage is not None and opts.codec in (Codec.LZ4, Codec.LZ4HC)
-            and native_pipeline_codec(opts.codec, opts.level) is not None):
-        frame = engage(flat, opts, nb_full, block_size)
+    if kind == "strategy":
+        frame = _strategy_encoder(strategy, opts)(flat, opts, nb_full, block_size)
         if frame is not None:
             return frame
     return _device_filter_fetch(flat, opts, nb_full, block_size), opts, block_size
@@ -247,19 +286,93 @@ def compress_filtered_slots(filtered: np.ndarray, opts: Options, block_size: int
     their filtered bytes are unfiltered back on the host, with the
     inverse of the filter that made them.
     """
-    native_codec, depth = native_pipeline_codec(opts.codec, opts.level)
     with span("tpbt.compress.codec"):
-        slots, slot, sizes, memcpy_flags = _nb.compress_slots(
-            filtered, block_size, opts.type_size, _PREFILTERED, native_codec,
-            depth, num_threads=opts.num_threads,
-        )
+        out = _native_slots(filtered, opts, block_size)
+    _unfilter_raw_blocks(out, opts)
+    return out
+
+
+def _native_slots(filtered: np.ndarray, opts: Options, block_size: int):
+    return _nb.compress_slots(filtered, block_size, opts.type_size, _PREFILTERED,
+                              *native_pipeline_codec(opts.codec, opts.level),
+                              num_threads=opts.num_threads)
+
+
+def _unfilter_raw_blocks(out, opts: Options) -> None:
+    """Unfilter, in place, the payloads of ``compress_slots``' output
+    ``out`` that took the memcpy fallback."""
+    slots, slot, sizes, memcpy_flags = out
     raw = np.flatnonzero(memcpy_flags)
     if raw.size:
         with span("tpbt.compress.host_filter"):
             for i in raw:
                 payload = slots[i * slot : i * slot + sizes[i]]
                 payload[:] = filters.unfilter_bytes(payload, opts.type_size, opts.shuffle)
-    return slots, slot, sizes, memcpy_flags
+
+
+# a save's stage 2 over a window of device leaves (checkpoint.py): the full
+# blocks of the window's leaves lie one after another in a host slab, and
+# one compress_slots call compresses them all, so that the native call has
+# blocks for every core and not only the pairs of one leaf's.  A
+# block's payload depends on its own bytes and length alone (the LZ4 pair
+# path is byte-identical to the single path, the tagged-epoch hash tables
+# to cleared ones), not on its neighbours, the call's block size or its
+# thread count: the frames are compress_array's.
+
+
+def _window_fetch(x: torch.Tensor, route: _Route, out: torch.Tensor):
+    """Stage 1 of a "transfer" tensor in a window: its full blocks
+    filtered on its device into ``out`` (a host uint8 tensor of their
+    bytes), and its ragged tail returned, copied to the host and filtered
+    there as _device_filter_fetch filters it (None where there is none)."""
+    flat = tensor_bytes(x)
+    opts, bs, nb_full = route.opts, route.block_size, route.nb_full
+    body = nb_full * bs
+    with span("tpbt.compress.filter"):
+        staged = filters.filter_blocks(flat[:body].view(nb_full, bs), opts.type_size,
+                                       opts.shuffle)
+    with span("tpbt.compress.d2h"):
+        out.copy_(staged.view(-1))
+        tail = _fetch(flat[body:]).numpy() if route.n > body else None
+    if tail is not None and tail.size >= opts.type_size:
+        with span("tpbt.compress.host_filter"):
+            tail = filters.filter_bytes(tail, opts.type_size, opts.shuffle)
+    return tail
+
+
+def _window_stage2(body: np.ndarray, routes: list[_Route], tails: list) -> list[bytes]:
+    """The frames of a window's "transfer" leaves, which share the options
+    and the block size: leaf k's full blocks are the next
+    ``routes[k].nb_full`` of ``body``, ``tails[k]`` its filtered tail (or
+    None).  One compress_slots call compresses ``body``, and one more each
+    distinct tail length the tails laid end to end."""
+    opts, bs = routes[0].opts, routes[0].block_size
+    by_length: dict[int, list[int]] = {}
+    for k, tail in enumerate(tails):
+        if tail is not None:
+            by_length.setdefault(tail.size, []).append(k)
+    with span("tpbt.compress.codec"):
+        full = _native_slots(body, opts, bs)
+        groups = [_native_slots(np.concatenate([tails[k] for k in ks]), opts, length)
+                  for length, ks in by_length.items()]
+    in_group = {k: (out, j) for out, ks in zip(groups, by_length.values())
+                for j, k in enumerate(ks)}
+    for out in (full, *groups):
+        _unfilter_raw_blocks(out, opts)
+    slots, slot, sizes, flags = full
+    frames, first = [], 0
+    with span("tpbt.compress.frame"):
+        for k, route in enumerate(routes):
+            last = first + route.nb_full
+            tail = None
+            if k in in_group:
+                (tslots, tslot, tsizes, tflags), j = in_group[k]
+                tail = tslots[j * tslot : j * tslot + tsizes[j]], bool(tflags[j])
+            frames.append(assemble_split_frame(
+                route.opts, route.n, bs, slots[first * slot : last * slot], slot,
+                sizes[first:last], flags[first:last], tail=tail))
+            first = last
+    return frames
 
 
 def decompress_array(data, dtype: torch.dtype, shape=None, device=None, sharding=None,

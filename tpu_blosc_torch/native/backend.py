@@ -409,15 +409,19 @@ def compress_slots(data, block_size: int, type_size: int, shuffle_mode: int,
 
 
 def gather_frame(prefix: bytes, slots: np.ndarray, slot: int,
-                 sizes: np.ndarray) -> bytes:
-    """``prefix`` (header and block table) followed by every payload, in
-    one allocation and one native copy of the payloads."""
-    frame, addr = alloc_bytes(len(prefix) + int(sizes.sum()))
+                 sizes: np.ndarray, tail: np.ndarray | None = None) -> bytes:
+    """``prefix`` (header and block table) followed by every payload and
+    then ``tail``'s bytes, in one allocation and one native copy of the
+    payloads."""
+    extra = 0 if tail is None else tail.size
+    frame, addr = alloc_bytes(len(prefix) + int(sizes.sum()) + extra)
     ctypes.memmove(addr, prefix, len(prefix))
     rc = lib().tpb_gather(_addr(slots), _addr(sizes), sizes.size, slot,
                           addr + len(prefix))
     if rc != 0:
         raise MemoryError("native frame gather failed: offsets allocation")
+    if extra:
+        ctypes.memmove(addr + len(frame) - extra, _addr(tail), extra)
     return frame
 
 
